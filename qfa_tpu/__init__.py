@@ -1,6 +1,6 @@
-"""qfa_tpu — TPU-native Quasar Factor Analysis.
+"""qfa_tpu — Quasar Factor Analysis in JAX.
 
-A from-scratch JAX/XLA/Pallas framework for unsupervised quasar-continuum
+A from-scratch JAX/XLA framework for unsupervised quasar-continuum
 modeling with the capabilities of the PyTorch reference (ZechangSun/QFA,
 arXiv:2207.02788): probabilistic continuum prediction with uncertainty,
 spectral embedding, and out-of-distribution detection via the marginal

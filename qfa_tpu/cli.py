@@ -2,8 +2,8 @@
 
 Workflow mirrors the reference driver (``/root/reference/main.py``): config
 from yaml + flags, config.yaml/log.txt dumped to the output dir, train and
-predict modes — implemented on the TPU-native stack (device-resident data,
-jit epoch scan, data-parallel mesh when more than one device is visible).
+predict modes — implemented on device-resident data with a jitted epoch
+scan, data-parallel over a mesh when more than one device is visible.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .config import ConfigNode, get_config
 
@@ -36,7 +35,7 @@ def _str2bool(value: str) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="TPU-native Quasar Factor Analysis (train / predict)"
+        description="Quasar Factor Analysis in JAX (train / predict)"
     )
     p.add_argument("--cfg", type=str, help="yaml configuration file")
     p.add_argument("--type", type=str, help="mode: train or predict")
@@ -241,35 +240,6 @@ def run_train(cfg: ConfigNode) -> None:
         )
 
     mesh = _build_mesh(cfg, cfg.DATA.BATCH_SIZE, logger)
-    engine = cfg.TRAIN.ENGINE
-    use_pallas = False
-    if engine in ("auto", "pallas"):
-        from .utils import is_tpu
-
-        if is_tpu():
-            use_pallas = True
-        elif engine == "pallas":
-            logger.warning(
-                "TRAIN.ENGINE=pallas requested but no TPU is visible; "
-                "falling back to the XLA trainer"
-            )
-    if use_pallas:
-        if mesh is None:
-            mode = ""
-        elif cfg.TRAIN.DP_EXACT:
-            mode = (
-                f" (exact DP at launch cadence over {mesh.devices.size} "
-                f"devices, {cfg.TRAIN.BATCHES_PER_LAUNCH} batch(es) per "
-                "launch; parallel/sync_dp.py)"
-            )
-        else:
-            mode = (
-                f" (multi-chip local SGD over {mesh.devices.size} devices; "
-                "set TRAIN.DP_EXACT for trajectory-exact DP at launch "
-                "cadence, or TRAIN.ENGINE=xla for per-step DP)"
-            )
-        logger.info("trainer engine: fused whole-epoch Pallas kernel%s",
-                    mode)
     train_cfg = TrainConfig(
         n_epochs=cfg.TRAIN.NEPOCHS,
         batch_size=cfg.DATA.BATCH_SIZE,
@@ -280,18 +250,11 @@ def run_train(cfg: ConfigNode) -> None:
         smooth_interval=cfg.TRAIN.SMOOTH_INTERVAL,
         save_interval=cfg.TRAIN.SAVE_INTERVAL,
         reference_norm=cfg.TRAIN.REFERENCE_NORM,
-        mxu_bf16=cfg.TRAIN.MXU_BF16,
-        bwd_wide=cfg.TRAIN.BWD_WIDE,
         options=ModelOptions(tau_which=cfg.MODEL.TAU),
     )
-    if cfg.TRAIN.MXU_BF16 and use_pallas:
-        logger.info(
-            "mxu mode: bf16 passes on the heavy in-kernel dots "
-            "(f32 accumulation; ~5e-7 relative loss drift)"
-        )
     if cfg.TRAIN.BF16_PLANES:
         # capacity mode: halve the resident delta/error bytes; every
-        # engine casts tiles/batches back to f32 before arithmetic
+        # trainer casts batches back to f32 before arithmetic
         from .data.loader import bf16_planes
 
         residuals = bf16_planes(residuals)
@@ -300,7 +263,8 @@ def run_train(cfg: ConfigNode) -> None:
             "(half the resident bytes; f32 arithmetic)"
         )
     with MetricsWriter(out) as metrics:
-        fit_kwargs = dict(
+        params, history = fit(
+            params, residuals, mu, train_cfg,
             key=jax.random.key(cfg.SEED),
             output_dir=out,
             logger=logger,
@@ -308,61 +272,10 @@ def run_train(cfg: ConfigNode) -> None:
                 epoch=e, loss=loss, seconds=dt,
                 spectra_per_s=round(residuals.size / max(dt, 1e-9), 1),
             ),
+            val_data=val_residuals,
+            mesh=mesh,
             initial_state=initial_state,
         )
-        if use_pallas:
-            from .ops import loglam_row, zq_column
-            from .train import fit_pallas
-
-            # production resident layout: when every masked pixel carries
-            # error == 0 (the loader sanitizes reads that way), the kernel
-            # derives the mask (error > 0) and the absorber redshifts
-            # (512 B zq column) in-kernel — ~half the resident footprint
-            # and stream traffic of the 4-plane layout.
-            pallas_kwargs = {}
-            if bool(np.all((dataset.error > 0.0) == dataset.mask)):
-                residuals = residuals._replace(
-                    zabs=zq_column(jnp.asarray(dataset.zqso)), mask=None
-                )
-                pallas_kwargs = dict(
-                    derive_mask=True, loglam=loglam_row(grid.wav)
-                )
-                logger.info(
-                    "resident layout: in-kernel mask + zq-column redshifts"
-                )
-            if mesh is not None and cfg.TRAIN.DP_EXACT:
-                pallas_kwargs["dp_exact"] = True
-                pallas_kwargs["batches_per_launch"] = (
-                    cfg.TRAIN.BATCHES_PER_LAUNCH
-                )
-            if cfg.TRAIN.EPOCHS_PER_LAUNCH > 1:
-                if pallas_kwargs.get("dp_exact"):
-                    logger.warning(
-                        "TRAIN.EPOCHS_PER_LAUNCH=%d ignored: exact-DP "
-                        "windows are sub-epoch (TRAIN.BATCHES_PER_LAUNCH "
-                        "amortizes launches instead)",
-                        cfg.TRAIN.EPOCHS_PER_LAUNCH,
-                    )
-                else:
-                    pallas_kwargs["epochs_per_launch"] = (
-                        cfg.TRAIN.EPOCHS_PER_LAUNCH
-                    )
-                    logger.info(
-                        "launch fusion: up to %d epochs per kernel "
-                        "launch%s",
-                        cfg.TRAIN.EPOCHS_PER_LAUNCH,
-                        "" if mesh is None else
-                        " (mesh replicas average once per chunk)",
-                    )
-            params, history = fit_pallas(
-                params, residuals, mu, train_cfg, val_data=val_residuals,
-                mesh=mesh, **pallas_kwargs, **fit_kwargs,
-            )
-        else:
-            params, history = fit(
-                params, residuals, mu, train_cfg,
-                val_data=val_residuals, mesh=mesh, **fit_kwargs,
-            )
     save_npz(os.path.join(out, "model_parameters.npz"), params, mu)
     logger.info("training done: %d epochs, final loss %.3f", len(history),
                 history[-1] if history else float("nan"))
@@ -376,7 +289,6 @@ def run_predict(cfg: ConfigNode) -> None:
     from .data.loader import SpectraDataset, read_predict_catalog
     from .infer.predict import (
         predict_dataset,
-        predict_dataset_fused,
         write_consolidated_npz,
         write_npz_outputs,
     )
@@ -392,38 +304,19 @@ def run_predict(cfg: ConfigNode) -> None:
     dataset = SpectraDataset.from_paths(paths, max_workers=cfg.DATA.NPROCS)
     params, mu = load_npz(cfg.MODEL.RESUME, compat_c0_bug=cfg.MODEL.COMPAT_C0_BUG)
 
-    from .utils import is_tpu
-
-    use_fused = cfg.TRAIN.ENGINE in ("auto", "pallas") and is_tpu()
+    # shard each batch over the data mesh when >1 device is visible (no
+    # collective: prediction has no cross-spectrum coupling)
+    mesh = _build_mesh(cfg, None, logger)
     t0 = time.time()
-    if use_fused:
-        # shard each chunk over the data mesh when >1 device is visible
-        # (one kernel launch per device per chunk, no collective)
-        mesh = (
-            _build_mesh(cfg, None, logger) if jax.device_count() > 1 else None
-        )
-        logger.info(
-            "predict engine: fused single-launch Pallas kernel%s",
-            "" if mesh is None
-            else f" over {mesh.devices.size} devices",
-        )
-        result = predict_dataset_fused(
-            params,
-            jnp.asarray(mu),
-            dataset,
-            grid,
-            options=ModelOptions(tau_which=cfg.MODEL.TAU),
-            mesh=mesh,
-        )
-    else:
-        result = predict_dataset(
-            params,
-            jnp.asarray(mu),
-            dataset,
-            grid,
-            batch_size=min(cfg.DATA.BATCH_SIZE, 4096),
-            options=ModelOptions(tau_which=cfg.MODEL.TAU),
-        )
+    result = predict_dataset(
+        params,
+        jnp.asarray(mu),
+        dataset,
+        grid,
+        batch_size=min(cfg.DATA.BATCH_SIZE, 4096),
+        options=ModelOptions(tau_which=cfg.MODEL.TAU),
+        mesh=mesh,
+    )
     if cfg.RUNTIME.CONSOLIDATED_PREDICT:
         write_consolidated_npz(
             result, dataset.paths, os.path.join(out, "predictions.npz")
@@ -439,8 +332,11 @@ def run_predict(cfg: ConfigNode) -> None:
 
 
 def main(argv=None) -> None:
+    from .utils.runtime import setup_compile_cache
+
     args = build_parser().parse_args(argv)
     cfg = get_config(args)
+    setup_compile_cache()
     if cfg.TYPE == "train":
         run_train(cfg)
     elif cfg.TYPE == "predict":

@@ -3,7 +3,7 @@
 Object-oriented shims mirroring the upstream public surface
 (``/root/reference/QFA/model.py`` class ``QFA`` and
 ``/root/reference/QFA/dataloader.py`` class ``Dataloader``) on top of the
-functional TPU core, so code written against the reference ports with an
+functional core, so code written against the reference ports with an
 import change. Semantics follow the reference except for its verified bugs
 (SURVEY.md section 3): gradients are exact (autodiff), ``load_from_npz``
 loads ``c0`` correctly unless ``compat_c0_bug=True``, and resume works.
@@ -191,8 +191,8 @@ class QFA:
         # partial(tau, which=config.MODEL.TAU) (/root/reference/main.py:87,
         # /root/reference/QFA/model.py:26-33). resolve_tau recovers the law
         # name from that idiom (or a plain name / law function); an opaque
-        # callable is kept verbatim and traced exactly by the XLA paths —
-        # never silently substituted (the Pallas engine then refuses it).
+        # callable is kept verbatim and traced exactly — never silently
+        # substituted.
         from .physics.tau import resolve_tau
 
         self.tau_which = resolve_tau(tau)
@@ -305,7 +305,6 @@ class QFA:
         weight_decay: float = 0.1,
         decay_alpha: float = 0.9,
         decay_step: int = 10,
-        engine: str = "auto",
     ) -> None:
         """Train on a :class:`Dataloader`'s data.
 
@@ -316,10 +315,6 @@ class QFA:
         :func:`step_scheduler`'s does) the decay schedule is honored too.
         Schedules passed as opaque closures cannot be introspected — pass
         ``decay_alpha``/``decay_step`` explicitly in that case.
-
-        ``engine``: ``"auto"`` (default) trains with the single-launch
-        whole-epoch Pallas kernel when a TPU is visible and the XLA scan
-        epoch otherwise; ``"pallas"``/``"xla"`` force one.
         """
         if dataloader is None:
             raise ValueError("dataloader is required")
@@ -358,36 +353,7 @@ class QFA:
                     "epoch: {:03d}/{:03d}  ;  loss:  {:.2f}  ;  "
                     "time:  {:.2f} s ".format(epoch, n_epochs, loss, dt)
                 )
-        if engine not in ("auto", "pallas", "xla"):
-            raise ValueError(
-                f"unknown engine {engine!r}; expected auto, pallas or xla"
-            )
-        from .utils import is_tpu
-
-        opaque_tau = callable(self.tau_which)
-        if opaque_tau and engine == "pallas":
-            # fail loudly rather than train the wrong optical-depth law:
-            # the Pallas kernels hard-code the named power-law family
-            raise ValueError(
-                "engine='pallas' requires a named tau law; this model was "
-                "constructed with an opaque tau callable — use "
-                "engine='xla', or pass tau=partial(tau, which='<law>') so "
-                "the law name can be recovered"
-            )
-        run = fit_fn
-        if engine == "pallas" and not is_tpu():
-            import warnings
-
-            warnings.warn(
-                "engine='pallas' requested but no TPU is visible; "
-                "training with the XLA engine instead",
-                stacklevel=2,
-            )
-        elif engine == "pallas" or (
-            engine == "auto" and is_tpu() and not opaque_tau
-        ):
-            from .train import fit_pallas as run
-        params, _history = run(
+        params, _history = fit_fn(
             self._params,
             dataloader.residuals(),
             self.mu,

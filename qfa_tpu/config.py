@@ -5,19 +5,48 @@ Re-creates the workflow of the reference's yacs-based config
 ``ConfigNode`` with attribute access, recursive ``BASE`` yaml inheritance,
 ``KEY.SUBKEY value`` list overrides, CLI merging and freezing. Key names are
 identical (``DATA.*``, ``MODEL.*``, ``TRAIN.*``) so reference yaml configs
-port over unchanged; new TPU-specific keys live under ``MESH.*`` and
+port over unchanged; keys the reference lacks live under ``MESH.*`` and
 ``RUNTIME.*``.
+
+The files are read and written by a small reader for the YAML subset the
+configs use — nested mappings of scalars, lists of scalars (flow
+``[a, b]`` or block ``- a`` style), comments — so the CLI needs no YAML
+package.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import re
 from typing import Any
 
-import yaml
+__all__ = [
+    "ConfigNode",
+    "REMOVED_KEYS",
+    "default_config",
+    "load_config",
+    "get_config",
+]
 
-__all__ = ["ConfigNode", "default_config", "load_config", "get_config"]
+#: keys of the removed hand-written kernel engines. A config that still
+#: sets one fails by name rather than being silently ignored.
+REMOVED_KEYS = frozenset({
+    "TRAIN.ENGINE",
+    "TRAIN.MXU_BF16",
+    "TRAIN.BWD_WIDE",
+    "TRAIN.EPOCHS_PER_LAUNCH",
+    "TRAIN.DP_EXACT",
+    "TRAIN.BATCHES_PER_LAUNCH",
+})
+
+
+def _check_removed(path: str) -> None:
+    if path in REMOVED_KEYS:
+        raise ValueError(
+            f"config key {path} was removed with the hand-written kernel "
+            "engines; the XLA path is the only engine — delete the key"
+        )
 
 
 class ConfigNode(dict):
@@ -66,14 +95,15 @@ class ConfigNode(dict):
         return ConfigNode(copy.deepcopy(self.to_dict()))
 
     # -- merging ------------------------------------------------------------
-    def merge_dict(self, other: dict) -> None:
+    def merge_dict(self, other: dict, prefix: str = "") -> None:
         for k, v in other.items():
+            _check_removed(prefix + k)
             if (
                 k in self
                 and isinstance(self[k], ConfigNode)
                 and isinstance(v, dict)
             ):
-                self[k].merge_dict(v)
+                self[k].merge_dict(v, prefix=f"{prefix}{k}.")
             else:
                 self[k] = ConfigNode(v) if isinstance(v, dict) else v
 
@@ -81,7 +111,7 @@ class ConfigNode(dict):
         """Merge a yaml file, honoring recursive ``BASE`` inheritance
         (paths relative to the including file, like the reference)."""
         with open(path) as f:
-            loaded = yaml.safe_load(f) or {}
+            loaded = parse_yaml(f.read())
         for base in loaded.pop("BASE", []) or []:
             if base:
                 self.merge_from_file(os.path.join(os.path.dirname(path), base))
@@ -92,6 +122,7 @@ class ConfigNode(dict):
         if len(opts) % 2:
             raise ValueError(f"--opts needs KEY VALUE pairs, got {opts}")
         for key, value in zip(opts[::2], opts[1::2]):
+            _check_removed(key)
             node = self
             parts = key.split(".")
             for p in parts[:-1]:
@@ -108,7 +139,180 @@ class ConfigNode(dict):
         }
 
     def dump(self) -> str:
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+        return dump_yaml(self.to_dict())
+
+
+# -- the YAML subset ---------------------------------------------------------
+
+_INT = re.compile(r"[-+]?[0-9]+\Z")
+_FLOAT = re.compile(
+    r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+|[0-9]+)([eE][-+]?[0-9]+)?\Z"
+)
+_TRUE = {"true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON"}
+_FALSE = {"false", "False", "FALSE", "no", "No", "NO", "off", "Off", "OFF"}
+_NULL = {"", "~", "null", "Null", "NULL"}
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that starts a line or follows whitespace,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(tok: str) -> Any:
+    tok = tok.strip()
+    if len(tok) >= 2 and tok[0] == tok[-1] == "'":
+        return tok[1:-1].replace("''", "'")
+    if len(tok) >= 2 and tok[0] == tok[-1] == '"':
+        return tok[1:-1].encode().decode("unicode_escape")
+    if tok in _NULL:
+        return None
+    if tok in _TRUE:
+        return True
+    if tok in _FALSE:
+        return False
+    if _INT.match(tok):
+        return int(tok)
+    if _FLOAT.match(tok):
+        return float(tok)
+    return tok
+
+
+def _split_flow(body: str) -> list:
+    """Split the inside of a flow list ``[a, 'b, c']`` at top-level commas."""
+    items, cur, quote = [], "", None
+    for ch in body:
+        if quote:
+            cur += ch
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+            cur += ch
+        elif ch == ",":
+            items.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    if cur.strip() or items:
+        items.append(cur)
+    return [_scalar(t) for t in items]
+
+
+def _value(tok: str) -> Any:
+    tok = tok.strip()
+    if tok.startswith("[") and tok.endswith("]"):
+        return _split_flow(tok[1:-1])
+    return _scalar(tok)
+
+
+def parse_yaml(text: str) -> dict:
+    """Parse the YAML subset the configs use into nested dicts.
+
+    Supported: ``key: value`` mappings nested by indentation, scalars
+    (null, booleans, ints, floats, plain or quoted strings), lists of
+    scalars in flow (``[a, b]``) or block (``- a``) style, and comments.
+    Anything else raises ``ValueError`` naming the line.
+    """
+    root: dict = {}
+    # (indent of the container's entries, container); a key whose value is
+    # on later lines waits in ``pending`` until its first child line
+    # decides between a mapping and a list
+    stack: list = []
+    pending: tuple | None = None
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        indent = len(line) - len(body)
+        if body.startswith("\t"):
+            raise ValueError(f"line {lineno}: tab indentation: {raw!r}")
+        is_item = body == "-" or body.startswith("- ")
+        if not stack:
+            stack.append((indent, root))
+        if pending is not None:
+            p_indent, p_parent, p_key = pending
+            pending = None
+            if is_item and indent >= p_indent:
+                p_parent[p_key] = []
+                stack.append((indent, p_parent[p_key]))
+            elif indent > p_indent:
+                p_parent[p_key] = {}
+                stack.append((indent, p_parent[p_key]))
+            else:
+                p_parent[p_key] = None
+        while True:
+            top_indent, top = stack[-1]
+            if isinstance(top, list) and not (is_item and indent == top_indent):
+                stack.pop()
+            elif isinstance(top, dict) and indent < top_indent and len(stack) > 1:
+                stack.pop()
+            else:
+                break
+        top_indent, top = stack[-1]
+        if indent != top_indent:
+            raise ValueError(f"line {lineno}: bad indentation: {raw!r}")
+        if is_item:
+            if not isinstance(top, list):
+                raise ValueError(f"line {lineno}: unexpected list item: {raw!r}")
+            top.append(_value(body[1:]))
+            continue
+        key, sep, rest = body.partition(":")
+        if not sep or (rest and not rest.startswith(" ")):
+            raise ValueError(f"line {lineno}: expected 'key: value': {raw!r}")
+        key = _scalar(key)
+        if rest.strip():
+            top[key] = _value(rest)
+        else:
+            pending = (indent, top, key)
+    if pending is not None:
+        pending[1][pending[2]] = None
+    return root
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        text = repr(v)
+        # keep a dot in the mantissa so YAML 1.1 readers see a float too
+        if "e" in text and "." not in text.split("e")[0]:
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(v).__name__} in the config subset")
+
+
+def dump_yaml(data: dict, indent: int = 0) -> str:
+    """Write nested dicts of scalars and scalar lists in the subset that
+    :func:`parse_yaml` reads (and that any YAML reader reads alike)."""
+    out = []
+    pad = " " * indent
+    for k, v in data.items():
+        if isinstance(v, dict):
+            out.append(f"{pad}{k}:\n" + dump_yaml(v, indent + 2))
+        elif isinstance(v, (list, tuple)):
+            items = ", ".join(_dump_scalar(x) for x in v)
+            out.append(f"{pad}{k}: [{items}]\n")
+        else:
+            out.append(f"{pad}{k}: {_dump_scalar(v)}\n")
+    return "".join(out)
 
 
 def _coerce(value: Any, old: Any) -> Any:
@@ -126,7 +330,8 @@ def _coerce(value: Any, old: Any) -> Any:
 
 def default_config() -> ConfigNode:
     """Defaults mirroring the reference key-for-key
-    (``/root/reference/QFA/config.py:14-63``) plus TPU-native extensions."""
+    (``/root/reference/QFA/config.py:14-63``) plus this package's own
+    ``MESH``/``RUNTIME`` keys."""
     return ConfigNode(
         {
             "BASE": [""],
@@ -180,64 +385,12 @@ def default_config() -> ConfigNode:
                 #: resume from the newest full-state checkpoint (params +
                 #: Adam moments + epoch) found in OUTPUT_DIR/checkpoints.
                 "AUTO_RESUME": True,
-                #: trainer engine: "auto"/"pallas" pick the fused
-                #: whole-epoch Pallas kernel on TPU — on a multi-device
-                #: mesh that is the multi-chip whole-epoch engine (local
-                #: SGD: one launch per device + one pmean per epoch,
-                #: parallel/epoch_dp.py). "xla" forces the XLA scan epoch;
-                #: with a mesh that is EXACT per-step DP (one gradient
-                #: psum per batch, parallel/dp.py).
-                "ENGINE": "auto",
                 #: capacity mode: store the resident delta/error planes as
-                #: bfloat16 (half the HBM footprint, ~1.5M SDSS spectra per
-                #: chip; kernel arithmetic stays f32). Measured ~0.7x the
-                #: f32 epoch rate on v5e — trade speed for residency.
+                #: bfloat16 (half the device-memory footprint; arithmetic
+                #: stays f32).
                 "BF16_PLANES": False,
-                #: Pallas engine: run the heavy in-kernel contractions as
-                #: bfloat16 MXU passes with f32 accumulation (~20% faster
-                #: headline epochs on v5e; loss trajectory drifts ~5e-7
-                #: relative over tens of epochs at production scale —
-                #: gated by bench.py's paired drift check and the
-                #: interpret-mode trajectory tests). Default ON: the speed
-                #: mode is the production trainer. Set false for bitwise
-                #: f32 loss-curve parity with the XLA path.
-                "MXU_BF16": True,
-                #: Pallas engine: fuse the two backward cotangent dots
-                #: into ONE block-diag contraction. Bitwise-identical
-                #: trajectory (the zero blocks add exact +0.0 terms) but
-                #: measured speed-NEUTRAL (1.005x f32 / 1.007x bf16,
-                #: docs/BWDWIDE_r05.json — the dots' cost is output-pass
-                #: bound, so one wide dot pays the same as two): kept as
-                #: a tested alternate lowering, not a speed mode.
-                "BWD_WIDE": False,
-                #: Pallas engine: epochs fused into ONE kernel launch
-                #: (amortizes the fixed dispatch cost, ~+9% epoch rate on
-                #: v5e at 5). Chunks auto-align to every smoothing/saving
-                #: boundary so the trajectory matches 1 exactly; NaN
-                #: rollback, early stop, and validation become
-                #: chunk-granular. On a mesh, the replicas also average
-                #: once per CHUNK instead of per epoch (local SGD with
-                #: sync every N epochs — N x less ICI traffic, drifting
-                #: trajectory). 1 = reference-exact cadence.
-                "EPOCHS_PER_LAUNCH": 1,
-                #: multi-device mesh: run trajectory-EXACT data
-                #: parallelism at kernel-launch cadence
-                #: (parallel/sync_dp.py) instead of the local-SGD
-                #: whole-epoch engine — every optimizer step consumes the
-                #: globally psum'd gradient (measured ~1.2x the plain
-                #: whole-epoch engine on one device, vs ~8-12x for the
-                #: per-batch TRAIN.ENGINE=xla DP cadence). No effect
-                #: without a mesh. Incompatible with EPOCHS_PER_LAUNCH>1.
-                "DP_EXACT": False,
-                #: with DP_EXACT: batches per kernel launch. 1 = one
-                #: launch + one fused psum per optimizer step (fully
-                #: exact on any mesh); K>1 = interior batches update
-                #: locally and replicas re-sync every K batches (still
-                #: exact on one device; local-SGD drift within windows on
-                #: a real mesh).
-                "BATCHES_PER_LAUNCH": 1,
             },
-            # TPU-native extensions
+            # extensions beyond the reference's keys
             "MESH": {
                 "DATA_AXIS": -1,  #: -1 = all local devices on the data axis
             },

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax.numpy as jnp
 import numpy as np
 
 from ..physics.lyman import LYA_WAVELENGTH
@@ -21,6 +22,9 @@ __all__ = [
     "DEFAULT_LAMMIN",
     "DEFAULT_LAMMAX",
     "DEFAULT_DLOGLAM",
+    "zq_column",
+    "loglam_row",
+    "zabs_from_zq",
 ]
 
 #: canonical reference SDSS grid bounds/step
@@ -72,3 +76,31 @@ def make_grid(
     wav = 10.0 ** np.arange(np.log10(lam_min), np.log10(lam_max), dloglam)
     nb = int(np.sum(wav < LYA_WAVELENGTH))
     return WavelengthGrid(wav=wav, nb=nb, nr=len(wav) - nb)
+
+
+def zq_column(zqso) -> jnp.ndarray:
+    """``log1p(zqso)`` as a float32 column, shape ``zqso.shape``.
+
+    With :func:`loglam_row` it carries everything needed to rebuild the
+    ``(N, Nb)`` absorber-redshift plane on the device (:func:`zabs_from_zq`):
+    4 bytes per spectrum in place of ``4 * Nb``.
+    """
+    return jnp.log1p(jnp.asarray(zqso, jnp.float32))
+
+
+def loglam_row(wav) -> jnp.ndarray:
+    """Static ``log(lam / lam_lya)`` row (float64 host math, cast once).
+
+    ``log(1 + zabs) = log1p(zqso) + loglam``: the reference relation
+    ``zabs = (1 + zqso) lam / lam_lya - 1``
+    (``/root/reference/QFA/dataloader.py:102``) as an outer add. Pass the
+    whole grid or its blue side; consumers read the first ``Nb`` entries.
+    """
+    row = np.log(np.asarray(wav, np.float64) / LYA_WAVELENGTH)
+    return jnp.asarray(row, jnp.float32)
+
+
+def zabs_from_zq(zq: jnp.ndarray, loglam: jnp.ndarray) -> jnp.ndarray:
+    """Absorber-redshift plane ``(..., len(loglam))`` from a
+    :func:`zq_column` and a (blue-side) :func:`loglam_row`."""
+    return jnp.expm1(zq[..., None] + loglam)

@@ -1,7 +1,7 @@
 """Data layer: spectra files -> fixed-shape device-resident tensors.
 
 Replaces the reference's host-side loader
-(``/root/reference/QFA/dataloader.py``) with a TPU-first design:
+(``/root/reference/QFA/dataloader.py``) with a device-resident design:
 
 * npz spectra are read concurrently (thread pool — ``np.load`` is
   IO-bound) into **fixed padded (N, Npix) buffers with masks**; missing
@@ -13,7 +13,7 @@ Replaces the reference's host-side loader
 * epoch shuffling is a ``jax.random.permutation`` of indices; batches are
   gathered on device — zero host->device traffic in steady state
   ("resident" mode). A streaming iterator is provided for datasets larger
-  than HBM.
+  than device memory.
 
 Catalog semantics (snr/z/num_mask filtering, sampling with replacement when
 the selection is too small, train-catalog dump) mirror
@@ -22,6 +22,7 @@ the selection is too small, train-catalog dump) mirror
 
 from __future__ import annotations
 
+import csv
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Sequence
@@ -148,28 +149,40 @@ def select_from_catalog(
     behavior). If ``output_dir`` is given, the chosen file list is written to
     ``{prefix}-catalog.csv`` for reproducibility.
     """
-    import pandas as pd
+    with open(catalog_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if rows:
+        missing = {"file", "snr", "z", "num_mask"} - set(rows[0])
+        if missing:
+            raise ValueError(
+                f"catalog {catalog_csv!r} lacks the column(s) "
+                f"{sorted(missing)} (needs file, snr, z, num_mask)"
+            )
 
-    cat = pd.read_csv(catalog_csv)
-    sel = (
-        (cat["snr"] >= snr_min)
-        & (cat["snr"] <= snr_max)
-        & (cat["z"] >= z_min)
-        & (cat["z"] <= z_max)
-        & (cat["num_mask"] <= num_mask)
+    def value(text: str | None) -> float:
+        # an empty cell fails every cut (it is NaN)
+        return float(text) if text and text.strip() else float("nan")
+
+    pool = np.asarray(
+        [
+            r["file"]
+            for r in rows
+            if snr_min <= value(r["snr"]) <= snr_max
+            and z_min <= value(r["z"]) <= z_max
+            and value(r["num_mask"]) <= num_mask
+        ],
+        dtype=object,
     )
-    pool = cat["file"][sel].to_numpy()
     if len(pool) == 0:
         raise ValueError("catalog selection is empty — relax the cuts")
     rng = np.random.default_rng(seed)
     files = rng.choice(pool, size=num, replace=len(pool) < num)
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
-        pd.Series(files).to_csv(
-            os.path.join(output_dir, f"{prefix}-catalog.csv"),
-            header=False,
-            index=False,
-        )
+        with open(
+            os.path.join(output_dir, f"{prefix}-catalog.csv"), "w", newline=""
+        ) as f:
+            csv.writer(f).writerows([name] for name in files)
     return [os.path.join(data_dir, f) for f in files]
 
 
@@ -237,7 +250,8 @@ def read_predict_catalog(catalog: str, data_dir: str) -> list[str]:
     The reference reads the predict catalog with pandas' DEFAULT header
     (``/root/reference/QFA/dataloader.py:88-91``), so the first line of a
     headerless file list is consumed as a column name and that spectrum
-    silently skipped. Here every row is kept (``header=None``) — but a
+    silently skipped. Here every row is kept (the first field of each
+    non-blank CSV row is a file name) — but a
     catalog ported from a reference workflow may carry a real header
     line, which would otherwise gain a bogus first "file". Detection: if
     the first row's resolved path does not exist while some later row's
@@ -251,10 +265,8 @@ def read_predict_catalog(catalog: str, data_dir: str) -> list[str]:
     """
     import warnings
 
-    import pandas as pd
-
-    files = pd.read_csv(catalog, header=None).values
-    files = np.atleast_1d(files.squeeze(-1))
+    with open(catalog, newline="") as f:
+        files = [row[0] for row in csv.reader(f) if row and row[0].strip()]
     paths = [os.path.join(data_dir, str(f)) for f in files]
     if (
         len(paths) > 1
@@ -322,8 +334,8 @@ def compute_taus(
 
     Computed in ``chunk``-row pieces pulled straight back to host so the
     accelerator never holds more than one chunk of temporaries — the
-    full-survey (N, Nb) evaluation used to OOM a 16 GB chip at exactly the
-    beyond-HBM scales the streaming path exists for. The result is shared
+    full-survey (N, Nb) evaluation would otherwise exhaust device memory at
+    exactly the beyond-device-memory scales the streaming path exists for. The result is shared
     by :func:`estimate_mu` and :func:`make_residuals` (pass it as ``taus``)
     instead of being recomputed by each.
     """
@@ -413,14 +425,14 @@ class ResidualDataset(NamedTuple):
         )
 
 
-def as_f32(x: Array | None) -> Array | None:
+def as_f32(x: Array) -> Array:
     """Promote bfloat16-STORED arrays (capacity mode) back to f32.
 
-    The single cast rule every engine shares: storage may be bf16
+    The single cast rule every trainer shares: storage may be bf16
     (:func:`bf16_planes`), arithmetic is always f32. No-op for any other
-    dtype and for ``None`` leaves.
+    dtype.
     """
-    if x is None or x.dtype != jnp.bfloat16:
+    if x.dtype != jnp.bfloat16:
         return x
     return x.astype(jnp.float32)
 
@@ -428,15 +440,17 @@ def as_f32(x: Array | None) -> Array | None:
 def bf16_planes(data: ResidualDataset) -> ResidualDataset:
     """Cast the streamed delta/error planes to bfloat16.
 
-    Halves the resident HBM footprint and per-epoch stream traffic of the
-    two big planes (~1.5M SDSS spectra on one v5e chip); the Pallas
-    kernels cast tiles back to f32 in VMEM, so all arithmetic, moments and
-    the Cholesky chain stay f32 — only the STORED data loses mantissa
-    (8 bits, ~0.3% relative, far below the spectra's noise level). zabs /
-    zq-column and mask keep their dtype.
+    Halves the resident device-memory footprint and per-epoch traffic of
+    the two big planes; the trainers cast each batch back to f32
+    (:func:`as_f32`), so all arithmetic, moments and the Cholesky chain
+    stay f32 — only the STORED data loses mantissa
+    (8 bits, ~0.3% relative, far below the spectra's noise level). zabs
+    and mask keep their dtype.
     """
-    cast = lambda x: None if x is None else x.astype(jnp.bfloat16)
-    return data._replace(delta=cast(data.delta), error=cast(data.error))
+    return data._replace(
+        delta=data.delta.astype(jnp.bfloat16),
+        error=data.error.astype(jnp.bfloat16),
+    )
 
 
 def make_residuals(

@@ -1,8 +1,8 @@
 """Streaming training data path for datasets larger than device memory.
 
 The resident path (``ResidualDataset`` + scanned epochs) is fastest but
-requires the whole survey in HBM (~60 KB/spectrum at SDSS scale — ~250k
-spectra per 16 GB chip). For larger corpora this module keeps the residual
+requires the whole survey in device memory (~26 KB/spectrum at SDSS scale
+in the four-plane layout). For larger corpora this module keeps the residual
 arrays in host RAM and streams fixed-size batches to the device with a
 prefetch queue, overlapping H2D transfer with compute (``jax.device_put``
 is asynchronous).

@@ -97,7 +97,9 @@ def generate(
 
     zabs = (1.0 + zqso)[:, None] * blue / LYA_WAVELENGTH - 1.0
     h = jax.random.normal(k_h, (n, nh), jnp.float32)
-    continuum = mu + h @ params.F.T
+    continuum = mu + jnp.matmul(
+        h, params.F.T, precision=jax.lax.Precision.HIGHEST
+    )
 
     amp = absorption(zabs, grid.nr, tau_which)
     zdep = omega_func(zabs, params.tau0, params.beta, params.c0)

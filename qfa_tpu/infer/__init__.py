@@ -3,7 +3,6 @@
 from .predict import (
     ood_scores,
     predict_dataset,
-    predict_dataset_fused,
     predict_resident,
     sample_posterior_continua,
     score_resident,
@@ -14,7 +13,6 @@ from .predict import (
 __all__ = [
     "ood_scores",
     "predict_dataset",
-    "predict_dataset_fused",
     "predict_resident",
     "sample_posterior_continua",
     "score_resident",

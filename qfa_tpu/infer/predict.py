@@ -10,6 +10,7 @@ optional consolidated single-file output.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Iterator, Sequence
 
@@ -26,7 +27,6 @@ Array = jnp.ndarray
 
 __all__ = [
     "predict_dataset",
-    "predict_dataset_fused",
     "predict_resident",
     "write_npz_outputs",
     "write_consolidated_npz",
@@ -47,11 +47,17 @@ def predict_dataset(
     *,
     batch_size: int = 1024,
     options: ModelOptions = ModelOptions(),
+    mesh=None,
 ) -> PredictResult:
     """Predict continua for a whole dataset in fixed-size padded batches.
 
     Every batch reuses one compiled program (the tail batch is padded up to
     ``batch_size``). Returns stacked host-side results for all ``N`` spectra.
+
+    ``mesh`` (a 1-D :class:`jax.sharding.Mesh`) shards every batch over
+    its devices (:func:`qfa_tpu.parallel.make_dp_predict_fn`, no
+    collective); the batch size is rounded up to a multiple of the device
+    count.
     """
     n = dataset.size
     zabs_all = grid.zabs(dataset.zqso).astype(np.float32)
@@ -60,6 +66,16 @@ def predict_dataset(
     flux_all = np.ascontiguousarray(dataset.flux, np.float32)
     error_all = np.ascontiguousarray(dataset.error, np.float32)
     mask_all = np.ascontiguousarray(dataset.mask, np.float32)
+    run = functools.partial(predict, options=options)
+    put = jnp.asarray
+    if mesh is not None:
+        from ..parallel.infer_dp import make_dp_predict_fn
+        from ..parallel.mesh import data_sharding
+
+        ndev = mesh.devices.size
+        batch_size = -(-batch_size // ndev) * ndev
+        run = make_dp_predict_fn(mesh, options=options)
+        put = lambda x: jax.device_put(x, data_sharding(mesh, x.ndim))  # noqa: E731
     outs: list[PredictResult] = []
     from ..utils.progress import progress
 
@@ -73,137 +89,38 @@ def predict_dataset(
             x = x[start:end]
             if pad:
                 x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
-            return jnp.asarray(x)
+            return put(x)
 
-        res = predict(
+        res = run(
             params,
             mu,
             prep(flux_all),
             prep(error_all),
             prep(zabs_all),
             prep(mask_all),
-            options,
         )
-        outs.append(jax.tree.map(lambda a: np.asarray(a[:b]), res))
+        # slice on the host: a device slice would compile for the tail size
+        outs.append(jax.tree.map(lambda a: np.asarray(a)[:b], res))
     return PredictResult(
         *(np.concatenate([getattr(o, f) for o in outs]) for f in PredictResult._fields)
     )
 
 
-def predict_dataset_fused(
-    params: QFAParams,
-    mu: Array,
-    dataset: SpectraDataset,
-    grid: WavelengthGrid,
-    *,
-    chunk: int = 8192,
-    tile_batch: int | None = None,
-    options: ModelOptions = ModelOptions(),
-    interpret: bool = False,
-    mesh=None,
-) -> PredictResult:
-    """Predict a host dataset through the single-launch Pallas kernel.
-
-    ``tile_batch=None`` picks the npix-aware VMEM-safe tile
-    (``ops.infer_kernel.default_tile_batch``): 256 at SDSS width, 128 on
-    DESI-scale grids — a fixed 256 would fail to compile at Npix ~ 9.3k.
-
-    One kernel launch per ``chunk`` spectra (the tail chunk is padded with
-    inert zero rows); the production TPU path of :func:`predict_dataset`
-    — identical outputs (float32 rounding), ~10x fewer kernel launches.
-    Host->device traffic runs in the production layout: the absorber
-    redshifts ship as the 512 B/spectrum zq column (rebuilt in-kernel),
-    and the mask plane is elided entirely when the dataset is
-    error-sanitized (masked pixels carry ``error == 0`` — the loader
-    guarantees this). Returns host-side stacked results for all ``N``
-    spectra.
-
-    ``mesh`` (a 1-D :class:`jax.sharding.Mesh`) shards every chunk over
-    the data axis and runs one kernel launch PER DEVICE per chunk
-    (:func:`qfa_tpu.parallel.fused_predict_dp` — no collective); chunks
-    pad to ``ndev * tile_batch``.
-    """
-    from ..ops.epoch_kernel import loglam_row, zq_column
-    from ..ops.infer_kernel import default_tile_batch, fused_predict
-
-    if tile_batch is None:
-        tile_batch = default_tile_batch(grid.npix)
-    unit = tile_batch
-    if mesh is not None:
-        from ..parallel.infer_dp import fused_predict_dp
-
-        unit = tile_batch * mesh.devices.size
-    n = dataset.size
-    flux_all = np.ascontiguousarray(dataset.flux, np.float32)
-    error_all = np.ascontiguousarray(dataset.error, np.float32)
-    derive_m = bool(np.all((dataset.error > 0.0) == dataset.mask))
-    # the (N, Npix) mask plane only materializes when it must ship
-    mask_all = (
-        None if derive_m else np.ascontiguousarray(dataset.mask, np.float32)
-    )
-    # single source of truth for the kernel's zq-column ABI
-    zq_all = np.asarray(zq_column(jnp.asarray(dataset.zqso, jnp.float32)))
-    loglam = loglam_row(grid.wav)
-    chunk = max(unit, chunk - chunk % unit)
-    outs = []
-    from ..utils.progress import progress
-
-    for start, end in progress(
-        list(_batched(n, chunk)), desc="predict (fused)", min_items=64
-    ):
-        b = end - start
-        pad = -(b % -unit)
-
-        def prep(x):
-            x = x[start:end]
-            if pad:
-                x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
-            return jnp.asarray(x)
-
-        kw = dict(
-            tau_which=options.tau_which,
-            tile_batch=tile_batch,
-            interpret=interpret,
-            loglam=loglam,
-            derive_zabs=True,
-        )
-        args = (
-            params, mu, prep(flux_all), prep(error_all), prep(zq_all),
-            None if derive_m else prep(mask_all),
-        )
-        if mesh is None:
-            res = fused_predict(*args, **kw)
-        else:
-            res = fused_predict_dp(*args, mesh=mesh, **kw)
-        outs.append(
-            PredictResult(
-                ll=np.asarray(res.ll[:b]),
-                hmean=np.asarray(res.hmean[:b]),
-                hcov=np.asarray(res.hcov[:b]),
-                continuum=np.asarray(res.continuum[:b]),
-                continuum_std=np.asarray(res.continuum_std[:b]),
-            )
-        )
-    return PredictResult(
-        *(np.concatenate([getattr(o, f) for o in outs])
-          for f in PredictResult._fields)
-    )
-
-
-from functools import partial
-
-
-@partial(jax.jit, static_argnames=("batch_size", "options"))
+@functools.partial(
+    jax.jit, static_argnames=("batch_size", "options", "stats_only")
+)
 def predict_resident(
     params: QFAParams,
     mu: Array,
     flux: Array,
     error: Array,
     zabs: Array,
-    mask: Array,
+    mask: Array | None = None,
     *,
     batch_size: int = 4096,
     options: ModelOptions = ModelOptions(),
+    stats_only: bool = False,
+    loglam: Array | None = None,
 ) -> PredictResult:
     """High-throughput prediction over a device-resident dataset.
 
@@ -211,6 +128,10 @@ def predict_resident(
     and keeps all traffic on-device (use :func:`predict_dataset` for
     host-side datasets / per-file npz output). ``N`` must be a multiple of
     ``batch_size`` (pad with masked rows otherwise).
+
+    ``stats_only``, ``mask=None`` and ``loglam`` (with ``zabs`` the
+    ``log1p(zqso)`` column) select the OOD sweep and the compact input of
+    :func:`~qfa_tpu.models.predict`.
     """
     n = flux.shape[0]
     if n % batch_size:
@@ -222,16 +143,20 @@ def predict_resident(
 
     def step(_, xs):
         fl, er, za, mk = xs
-        res = predict(params, mu, fl, er, za, mk, options)
+        res = predict(
+            params, mu, fl, er, za, mk, options,
+            stats_only=stats_only, loglam=loglam,
+        )
         return None, res
 
+    planes = (flux, error, zabs, mask)
     _, results = jax.lax.scan(
-        step, None, (reshape(flux), reshape(error), reshape(zabs), reshape(mask))
+        step, None, jax.tree.map(reshape, planes)
     )
     return jax.tree.map(lambda x: x.reshape((n,) + x.shape[2:]), results)
 
 
-@partial(jax.jit, static_argnames=("batch_size", "options"))
+@functools.partial(jax.jit, static_argnames=("batch_size", "options"))
 def score_resident(
     params: QFAParams,
     mu: Array,
@@ -351,8 +276,9 @@ def sample_posterior_continua(
     eps = jax.random.normal(
         key, (n_samples,) + result.hmean.shape, result.hmean.dtype
     )
-    h = result.hmean + jnp.einsum("bij,sbj->sbi", chol, eps)
-    return jnp.einsum("sbh,ph->sbp", h, params.F) + mu
+    hp = jax.lax.Precision.HIGHEST
+    h = result.hmean + jnp.einsum("bij,sbj->sbi", chol, eps, precision=hp)
+    return jnp.einsum("sbh,ph->sbp", h, params.F, precision=hp) + mu
 
 
 def ood_scores(result: PredictResult, n_obs: np.ndarray | None = None) -> np.ndarray:

@@ -5,6 +5,7 @@ from .lowrank import (
     LowRankFactors,
     batched_capacitance,
     dense_masked_nll,
+    dense_masked_posterior,
     factorize,
     gram_matrix,
     nll,
@@ -16,6 +17,7 @@ __all__ = [
     "LowRankFactors",
     "batched_capacitance",
     "dense_masked_nll",
+    "dense_masked_posterior",
     "factorize",
     "gram_matrix",
     "nll",

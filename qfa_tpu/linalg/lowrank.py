@@ -21,14 +21,13 @@ Everything is O(Npix * Nh^2) per spectrum and never materializes an
 Npix x Npix matrix (the reference materializes the dense inverse,
 ``/root/reference/QFA/utils.py:32``).
 
-TPU mapping: because ``F`` is shared, the batch of capacitance matrices is a
-single large matmul against the precomputed Gram tensor
-``G[p, i*Nh+j] = F[p,i] F[p,j]``:
+Because ``F`` is shared, the batch of capacitance matrices is a single large
+matmul against the precomputed Gram tensor ``G[p, i*Nh+j] = F[p,i] F[p,j]``:
 
     K[b] = I + reshape(W[b] @ G),    W[b, p] = A[b,p]^2 * Dinv[b,p]
 
-i.e. a (B, Npix) @ (Npix, Nh^2) GEMM that the MXU executes at full tile
-width, instead of B separate skinny (Nh, Npix)@(Npix, Nh) products.
+i.e. one (B, Npix) @ (Npix, Nh^2) GEMM instead of B separate skinny
+(Nh, Npix)@(Npix, Nh) products.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ __all__ = [
     "solve_posterior",
     "nll",
     "dense_masked_nll",
+    "dense_masked_posterior",
 ]
 
 
@@ -129,12 +129,11 @@ def factorize(
     Returns:
         :class:`LowRankFactors` with leading dims ``...``.
 
-    TPU note: every per-spectrum contraction — the Nh x Nh capacitance, the
-    Nh data projection, and the three scalar reductions (quad / logdet_d /
-    n_obs) — is packed into ONE stacked GEMM
-    ``(..., 5, Npix) @ (Npix, Nh^2 + Nh + 1)`` so the whole factorization is
-    a single MXU kernel plus one fused elementwise producer. The unused
-    cross terms cost FLOPs the MXU has to spare; kernel launches it does not.
+    Every per-spectrum contraction — the Nh x Nh capacitance, the Nh data
+    projection, and the three scalar reductions (quad / logdet_d / n_obs) —
+    is packed into ONE stacked GEMM ``(..., 5, Npix) @ (Npix, Nh^2 + Nh + 1)``
+    so the whole factorization is a single matrix product plus one fused
+    elementwise producer. The unused cross terms cost extra FLOPs.
     """
     npix, nh = f.shape
     if gram is None:
@@ -195,15 +194,47 @@ def dense_masked_nll(
 ) -> Array:
     """O(Npix^3) dense-matrix reference for tests (single spectrum).
 
-    Builds the full covariance on the masked submatrix exactly like the
-    reference (``/root/reference/QFA/model.py:125-135``) but with
-    ``jnp.linalg`` — used to validate the fixed-shape masked path.
+    Builds the full Npix x Npix covariance ``Ftil Ftil^T + diag(D)``
+    (``/root/reference/QFA/model.py:125-135``) with ``jnp.linalg``, the
+    masked rows and columns replaced by identity rows: the determinant and
+    the solve then equal those of the row-deleted submatrix, while every
+    shape stays fixed, so the reference jits, vmaps and differentiates.
+    Every product runs at ``Precision.HIGHEST`` (float32 products would
+    otherwise run in TF32 on a GPU, which is no reference).
     """
-    keep = jnp.asarray(mask, bool)
-    ftil = (amp[:, None] * f)[keep]
-    sigma = ftil @ ftil.T + jnp.diag(d[keep])
-    sub_delta = delta[keep]
-    n = sub_delta.shape[0]
-    sign, logdet = jnp.linalg.slogdet(sigma)
-    mahal = sub_delta @ jnp.linalg.solve(sigma, sub_delta)
-    return 0.5 * (mahal + n * LOG_2PI + logdet)
+    m, _ftil, sigma = _dense_system(f, amp, d, mask)
+    sub_delta = m * delta
+    _sign, logdet = jnp.linalg.slogdet(sigma)
+    sol = jnp.linalg.solve(sigma, sub_delta)
+    mahal = jnp.dot(sub_delta, sol, precision=lax.Precision.HIGHEST)
+    return 0.5 * (mahal + jnp.sum(m) * LOG_2PI + logdet)
+
+
+def _dense_system(f, amp, d, mask):
+    """Masked ``Ftil`` and the fixed-shape dense covariance (masked rows and
+    columns replaced by identity rows) shared by the dense references."""
+    m = jnp.asarray(mask).astype(f.dtype)
+    ftil = (m * amp)[:, None] * f
+    sigma = (
+        jnp.matmul(ftil, ftil.T, precision=lax.Precision.HIGHEST)
+        + jnp.diag(m * d + (1.0 - m))
+    )
+    return m, ftil, sigma
+
+
+def dense_masked_posterior(
+    f: Array, delta: Array, amp: Array, d: Array, mask: Array
+) -> tuple[Array, Array]:
+    """O(Npix^3) dense reference for the latent posterior (one spectrum).
+
+    ``hmean = Ftil^T Sigma^-1 delta`` and ``hcov = I - Ftil^T Sigma^-1 Ftil``
+    with the dense masked covariance of :func:`dense_masked_nll` — the
+    covariance-side form, independent of the capacitance (Woodbury) path
+    that :func:`solve_posterior` takes. Every product at HIGHEST precision.
+    """
+    hp = lax.Precision.HIGHEST
+    m, ftil, sigma = _dense_system(f, amp, d, mask)
+    rhs = jnp.concatenate([(m * delta)[:, None], ftil], axis=1)
+    sol = jnp.linalg.solve(sigma, rhs)
+    proj = jnp.matmul(ftil.T, sol, precision=hp)  # (Nh, 1 + Nh)
+    return proj[:, 0], jnp.eye(f.shape[1], dtype=f.dtype) - proj[:, 1:]

@@ -1,11 +1,10 @@
 """Unrolled Cholesky factorization/solves for tiny SPD matrices.
 
 ``jnp.linalg.cholesky`` + ``triangular_solve`` on a batch of Nh x Nh
-matrices (Nh ~ 8) lower to LAPACK-style loop kernels that neither fuse nor
-use the vector unit efficiently; on TPU each shows up as a separate kernel
-launch. For small static Nh the factorization is just ~Nh^2/2 scalar
+matrices (Nh ~ 8) lower to library loop kernels that do not fuse with their
+neighbours. For small static Nh the factorization is just ~Nh^2/2 scalar
 formulas, so we unroll them into elementwise ops over the batch dimension —
-XLA fuses the whole factor+solve+logdet chain into one VPU kernel, and
+XLA fuses the whole factor+solve+logdet chain into elementwise kernels, and
 autodiff works through it for free.
 
 Used by the likelihood hot path whenever Nh <= MAX_UNROLL_DIM.

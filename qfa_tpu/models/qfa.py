@@ -5,9 +5,9 @@ This module replaces the reference's per-spectrum Python hot loop
 spectrum) with a single fixed-shape tensor program over the whole batch:
 
 1. elementwise assembly of the absorption amplitude ``A`` and noise diagonal
-   ``D = A^2 Psi + omega * zdep + error^2`` (VPU-friendly, fused by XLA);
+   ``D = A^2 Psi + omega * zdep + error^2`` (fused by XLA);
 2. one (B, Npix) @ (Npix, Nh^2 + ...) GEMM for every capacitance matrix and
-   data projection at once (MXU-friendly, see ``qfa_tpu.linalg.lowrank``);
+   data projection at once (see ``qfa_tpu.linalg.lowrank``);
 3. batched Nh x Nh Cholesky factorizations and triangular solves.
 
 Gradients come from ``jax.grad`` (exact by construction — the reference's
@@ -26,6 +26,8 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..data.batch import SpectraBatch
+from ..data.grid import zabs_from_zq
+from ..data.loader import as_f32
 from ..linalg import lowrank
 from ..physics.tau import omega_func, tau as tau_line
 from .params import QFAParams
@@ -47,6 +49,7 @@ __all__ = [
     "normalize_with_counts",
     "summed_stats",
     "predict",
+    "dense_predict",
     "make_delta",
 ]
 
@@ -57,10 +60,8 @@ class ModelOptions(NamedTuple):
     ``tau_which`` is a law name or an arbitrary callable ``tau(z)`` (the
     reference constructor form, ``/root/reference/QFA/model.py:26-33``;
     normalize user input with :func:`qfa_tpu.physics.tau.resolve_tau`).
-    A callable is traced exactly by every XLA path; the Pallas power-law
-    kernels require a name and reject callables loudly. NOTE: callables
-    hash by identity — reuse one ``ModelOptions`` instance to avoid
-    recompilation.
+    A callable is traced exactly. NOTE: callables hash by identity — reuse
+    one ``ModelOptions`` instance to avoid recompilation.
     """
 
     #: mean-optical-depth law for the amplitude A: name or callable.
@@ -74,8 +75,12 @@ class PredictResult(NamedTuple):
     ll: Array  #: (B,) negative log-likelihood (OOD score).
     hmean: Array  #: (B, Nh) posterior mean of the latent factors.
     hcov: Array  #: (B, Nh, Nh) posterior covariance.
-    continuum: Array  #: (B, Npix) predicted unabsorbed continuum F hmean + mu.
-    continuum_std: Array  #: (B, Npix) predictive std sqrt(diag(F hcov F^T)).
+    #: (B, Npix) predicted unabsorbed continuum F hmean + mu (None when
+    #: ``stats_only``).
+    continuum: Array | None
+    #: (B, Npix) predictive std sqrt(diag(F hcov F^T)) (None when
+    #: ``stats_only``).
+    continuum_std: Array | None
 
 
 def absorption(
@@ -291,15 +296,18 @@ def make_delta(
     return (flux - mu * amp) * m
 
 
-@partial(jax.jit, static_argnames=("options",))
+@partial(jax.jit, static_argnames=("options", "stats_only"))
 def predict(
     params: QFAParams,
     mu: Array,
     flux: Array,
     error: Array,
     zabs: Array,
-    mask: Array,
+    mask: Array | None = None,
     options: ModelOptions = ModelOptions(),
+    *,
+    stats_only: bool = False,
+    loglam: Array | None = None,
 ) -> PredictResult:
     """Batched continuum prediction + OOD scoring.
 
@@ -309,7 +317,26 @@ def predict(
     ``F hmean + mu`` on the full unabsorbed grid, and its uncertainty.
 
     All array arguments may carry arbitrary leading batch dimensions.
+
+    Compact input, for survey sweeps that keep the data on the device:
+
+    * ``mask=None`` derives the mask from ``error > 0`` (the data layer
+      stores every masked pixel with error 0);
+    * with ``loglam`` (:func:`~qfa_tpu.data.grid.loglam_row`), ``zabs`` is
+      the ``log1p(zqso)`` column (:func:`~qfa_tpu.data.grid.zq_column`,
+      shape ``(...,)``) instead of the ``(..., Nb)`` absorber-redshift
+      plane, which is rebuilt here.
+
+    ``stats_only=True`` returns ``ll``, ``hmean`` and ``hcov`` only
+    (``continuum`` and ``continuum_std`` are None): the OOD sweep, which
+    writes no ``(B, Npix)`` planes.
     """
+    # bfloat16-stored planes compute in float32, like the trainers
+    flux, error = as_f32(flux), as_f32(error)
+    if mask is None:
+        mask = (error > 0.0).astype(flux.dtype)
+    if loglam is not None:
+        zabs = zabs_from_zq(zabs, loglam[: params.omega.shape[0]])
     nb = zabs.shape[-1]
     nr = flux.shape[-1] - nb
     amp = absorption(zabs, nr, options.tau_which)
@@ -324,6 +351,10 @@ def predict(
     factors, _ = batch_factors(params, batch, options)
     ll = lowrank.nll(factors)
     hmean, hcov = lowrank.solve_posterior(factors)
+    if stats_only:
+        return PredictResult(
+            ll=ll, hmean=hmean, hcov=hcov, continuum=None, continuum_std=None
+        )
     continuum = (
         jnp.matmul(hmean, params.F.T, precision=options.precision) + mu
     )
@@ -336,5 +367,49 @@ def predict(
         hmean=hmean,
         hcov=hcov,
         continuum=continuum,
+        continuum_std=jnp.sqrt(jnp.maximum(var, 0.0)),
+    )
+
+
+def dense_predict(
+    params: QFAParams,
+    mu: Array,
+    flux: Array,
+    error: Array,
+    zabs: Array,
+    mask: Array,
+    options: ModelOptions = ModelOptions(),
+) -> PredictResult:
+    """Dense O(Npix^3) reference for :func:`predict`, batch ``(B, Npix)``.
+
+    Assembles the same absorption amplitude and noise diagonal, then takes
+    the likelihood and the posterior from the dense masked covariance
+    (:func:`~qfa_tpu.linalg.lowrank.dense_masked_nll`,
+    :func:`~qfa_tpu.linalg.lowrank.dense_masked_posterior`) instead of the
+    capacitance path. Every product runs at ``Precision.HIGHEST``. For the
+    tests and the bring-up check, on small batches.
+    """
+    hp = lax.Precision.HIGHEST
+    nr = flux.shape[-1] - zabs.shape[-1]
+    amp = absorption(zabs, nr, options.tau_which)
+    m = jnp.asarray(mask).astype(flux.dtype)
+    delta = (flux - mu * amp) * m
+    zdep = omega_func(zabs, params.tau0, params.beta, params.c0)
+    omega_full = jnp.concatenate(
+        [params.omega * zdep, jnp.zeros(zdep.shape[:-1] + (nr,), zdep.dtype)],
+        axis=-1,
+    )
+    d = amp * amp * params.Psi + omega_full + error * error
+
+    def one(delta, amp, d, m):
+        ll = lowrank.dense_masked_nll(params.F, delta, amp, d, m)
+        hmean, hcov = lowrank.dense_masked_posterior(params.F, delta, amp, d, m)
+        return ll, hmean, hcov
+
+    ll, hmean, hcov = jax.vmap(one)(delta, amp, d, m)
+    continuum = jnp.matmul(hmean, params.F.T, precision=hp) + mu
+    var = jnp.einsum("ph,bhk,pk->bp", params.F, hcov, params.F, precision=hp)
+    return PredictResult(
+        ll=ll, hmean=hmean, hcov=hcov, continuum=continuum,
         continuum_std=jnp.sqrt(jnp.maximum(var, 0.0)),
     )

@@ -1,25 +1,36 @@
 """Native runtime components (C++, ctypes-bound).
 
-The batch spectra reader compiles on first use (g++ -O3, cached next to the
-source) and is loaded through ctypes — no build-system or pybind11
-dependency. Everything degrades gracefully: if no compiler is available the
-data layer falls back to the pure-Python reader.
+The batch spectra reader compiles on first use (g++ -O3) and is loaded
+through ctypes — no build-system or pybind11 dependency. The library is
+named by a hash of its source and the machine's architecture and kept in
+the gitignored ``_build/`` directory beside it, so a library is only ever
+loaded for the exact source it was built from. Everything degrades
+gracefully: if no compiler is available the data layer falls back to the
+pure-Python reader.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
-__all__ = ["native_available", "read_spectra_native", "build_library"]
+__all__ = [
+    "native_available",
+    "read_spectra_native",
+    "build_library",
+    "library_path",
+]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "npz_reader.cpp")
-_LIB = os.path.join(_DIR, "libqfa_native.so")
+_BUILD_DIR = os.path.join(_DIR, "_build")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -27,18 +38,39 @@ _build_failed = False
 _build_error: str | None = None  #: first build/load failure, for diagnostics
 
 
+def library_path() -> str:
+    """Where the library built from the current source lives."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(platform.machine().encode())
+    return os.path.join(
+        _BUILD_DIR, f"libqfa_native-{digest.hexdigest()[:16]}.so"
+    )
+
+
 def build_library(force: bool = False) -> str:
-    """Compile the native reader (idempotent); returns the .so path."""
+    """Compile the native reader (idempotent); returns the .so path.
+
+    The compiler writes to a temporary name that is renamed into place, so
+    concurrent builders (test workers) never load a half-written file.
+    """
+    lib = library_path()
     with _lock:
-        if force or not os.path.exists(_LIB) or (
-            os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-        ):
-            cmd = [
-                "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                "-o", _LIB, _SRC, "-lz", "-lpthread",
-            ]
-            subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return _LIB
+        if force or not os.path.exists(lib):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            try:
+                cmd = [
+                    "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+                    "-o", tmp, _SRC, "-lz", "-lpthread",
+                ]
+                subprocess.run(cmd, check=True, capture_output=True, text=True)
+                os.replace(tmp, lib)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+    return lib
 
 
 def _load() -> ctypes.CDLL | None:

@@ -1,9 +1,8 @@
-"""Multi-chip parallelism: mesh construction, data-parallel SPMD training."""
+"""Multi-device parallelism: mesh construction, data-parallel SPMD training
+and sharded prediction."""
 
 from .dp import dp_train_epoch, make_dp_epoch_fn, shard_dataset, shard_epoch_indices
-from .epoch_dp import epoch_dp_train_epoch, make_epoch_dp_fn
-from .infer_dp import fused_predict_dp, make_dp_predict_fn
-from .sync_dp import make_sync_dp_epoch_fn, sync_dp_train_epoch
+from .infer_dp import make_dp_predict_fn
 from .mesh import (
     data_sharding,
     initialize_distributed,
@@ -15,13 +14,8 @@ from .mesh import (
 
 __all__ = [
     "dp_train_epoch",
-    "epoch_dp_train_epoch",
-    "fused_predict_dp",
     "make_dp_epoch_fn",
     "make_dp_predict_fn",
-    "make_epoch_dp_fn",
-    "make_sync_dp_epoch_fn",
-    "sync_dp_train_epoch",
     "shard_dataset",
     "shard_epoch_indices",
     "data_sharding",

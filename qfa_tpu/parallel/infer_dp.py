@@ -1,23 +1,16 @@
-"""Multi-chip fused inference: shard the spectrum axis over a device mesh.
+"""Multi-device prediction: shard the spectrum axis over a device mesh.
 
 The reference's predict path is a sequential per-spectrum host loop
 (``/root/reference/main.py:86-100`` calling
 ``/root/reference/QFA/model.py:160-180``); it has no distributed support
-of any kind (SURVEY.md §2 "parallelism components"). Here the production
-single-launch prediction kernel (:func:`qfa_tpu.ops.fused_predict`) runs
-SPMD over a 1-D data mesh: the model is tiny and replicated, the
-``(N, Npix)`` flux/error planes (and the 512 B/spectrum zq column) are
-sharded over the batch axis, and every device executes the SAME fused
-kernel on its local shard. Inference has no cross-spectrum coupling, so
-there is **no collective at all** — per-spectrum outputs come back
-sharded along the batch axis and concatenation is free (it is just the
-global array view).
-
-Each spectrum's result is computed from exactly the same tile contents
-as in the single-device launch (tiles never span shard boundaries), so
-outputs match :func:`fused_predict` on one device with the same
-``tile_batch`` to float32 rounding (compilers may fuse the smaller local
-grid differently) — pinned by ``tests/test_parallel.py``.
+of any kind (SURVEY.md §2 "parallelism components"). Here the batched
+predictor (:func:`qfa_tpu.models.predict`) runs SPMD over a 1-D data
+mesh: the model is tiny and replicated, the ``(N, Npix)`` planes are
+sharded over the batch axis, and every device runs the same program on
+its local shard. Prediction has no cross-spectrum coupling, so there is
+**no collective at all** — per-spectrum outputs come back sharded along the
+batch axis, and each matches the single-device result to float32 rounding
+(pinned by ``tests/test_parallel.py``).
 """
 
 from __future__ import annotations
@@ -25,150 +18,62 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.infer_kernel import (
-    FusedPredictOutputs,
-    default_tile_batch,
-    fused_predict,
-)
+from ..models.qfa import ModelOptions, PredictResult, predict
 
-__all__ = ["fused_predict_dp", "make_dp_predict_fn"]
+__all__ = ["make_dp_predict_fn"]
 
 
 @functools.lru_cache(maxsize=16)
 def make_dp_predict_fn(
     mesh: Mesh,
     *,
-    has_mask: bool,
-    tau_which: str = "becker",
-    tile_batch: int = 256,
+    options: ModelOptions = ModelOptions(),
+    has_mask: bool = True,
+    compact: bool = False,
     stats_only: bool = False,
-    derive_zabs: bool = False,
-    interpret: bool = False,
-    out_dtype=jnp.float32,
 ):
     """Build the jitted SPMD prediction step for ``mesh``.
 
     Returns ``fn(params, mu, flux, error, zabs, [mask], [loglam]) ->
-    FusedPredictOutputs`` with ``flux``/``error``/``zabs`` (and ``mask``)
+    PredictResult`` with ``flux``/``error``/``zabs`` (and ``mask``)
     sharded over the mesh's first axis and ``params``/``mu``/``loglam``
-    replicated. Cached per (mesh, statics) — reuse across calls costs one
-    dict lookup, like :func:`fused_predict`'s own jit cache.
+    replicated. ``has_mask=False`` derives the mask from ``error > 0`` and
+    ``compact=True`` takes the ``log1p(zqso)`` column plus the ``loglam``
+    row in place of the zabs plane (the compact input of
+    :func:`~qfa_tpu.models.predict`). ``stats_only`` returns ``ll``,
+    ``hmean`` and ``hcov`` only. ``N`` must divide evenly over the mesh.
+    Cached per (mesh, statics).
     """
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"make_dp_predict_fn shards over a 1-D data mesh; got axes "
+            f"{mesh.axis_names}"
+        )
     axis = mesh.axis_names[0]
 
     def local_predict(params, mu, flux, error, zabs, *rest):
         rest = list(rest)
         mask = rest.pop(0) if has_mask else None
-        loglam = rest.pop(0) if derive_zabs else None
-        res = fused_predict(
-            params, mu, flux, error, zabs, mask,
-            tau_which=tau_which, tile_batch=tile_batch,
-            interpret=interpret, stats_only=stats_only,
-            loglam=loglam, derive_zabs=derive_zabs, out_dtype=out_dtype,
+        loglam = rest.pop(0) if compact else None
+        return predict(
+            params, mu, flux, error, zabs, mask, options,
+            stats_only=stats_only, loglam=loglam,
         )
-        if stats_only:  # drop the None fields: shard_map wants array leaves
-            return res.ll, res.hmean, res.hcov, res.n_obs
-        return res
 
     rep, row = P(), P(axis, None)
     in_specs = (
-        rep, rep, row, row, row,
+        rep, rep, row, row, P(axis) if compact else row,
         *([row] if has_mask else []),
-        *([rep] if derive_zabs else []),
+        *([rep] if compact else []),
     )
-    if stats_only:
-        out_specs = (P(axis), row, P(axis, None, None), P(axis))
-    else:
-        out_specs = FusedPredictOutputs(
-            ll=P(axis), hmean=row, hcov=P(axis, None, None),
-            continuum=row, continuum_std=row, n_obs=P(axis),
-        )
-    fn = jax.jit(jax.shard_map(
+    out_specs = PredictResult(
+        ll=P(axis), hmean=row, hcov=P(axis, None, None),
+        continuum=None if stats_only else row,
+        continuum_std=None if stats_only else row,
+    )
+    return jax.jit(jax.shard_map(
         local_predict, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
         check_vma=False,
     ))
-    if not stats_only:
-        return fn
-
-    def wrap(*args):
-        ll, hmean, hcov, n_obs = fn(*args)
-        return FusedPredictOutputs(
-            ll=ll, hmean=hmean, hcov=hcov,
-            continuum=None, continuum_std=None, n_obs=n_obs,
-        )
-
-    return wrap
-
-
-def fused_predict_dp(
-    params,
-    mu,
-    flux,
-    error,
-    zabs,
-    mask=None,
-    *,
-    mesh: Mesh,
-    tau_which: str = "becker",
-    tile_batch: int | None = None,
-    stats_only: bool = False,
-    loglam=None,
-    derive_zabs: bool = False,
-    interpret: bool = False,
-    out_dtype=jnp.float32,
-) -> FusedPredictOutputs:
-    """:func:`qfa_tpu.ops.fused_predict`, sharded over ``mesh``'s data axis.
-
-    Drop-in signature plus ``mesh``. ``N`` must divide evenly over the
-    mesh and each local shard over ``tile_batch`` (``None`` picks the
-    npix-aware default capped at the local shard). Outputs match the
-    single-device kernel at the same ``tile_batch`` to float32 rounding.
-    ``stats_only=True`` is the survey-scale OOD sweep: per-device output
-    traffic drops to the ~80-float stats rows per spectrum.
-    """
-    if len(mesh.axis_names) != 1:
-        raise ValueError(
-            f"fused_predict_dp shards over a 1-D data mesh; got axes "
-            f"{mesh.axis_names} — for 2-D data x pix meshes use the "
-            "training-side parallel.tp layout"
-        )
-    ndev = mesh.devices.size
-    n = flux.shape[0]
-    if n % ndev:
-        raise ValueError(f"N={n} not divisible over the {ndev}-device mesh")
-    n_local = n // ndev
-    tb = tile_batch
-    if tb is None:
-        tb = min(default_tile_batch(params.F.shape[0]), n_local)
-        tb -= tb % 8  # sublane alignment — fail loudly here, not as an
-        # obscure Mosaic layout error on hardware
-        if tb == 0:
-            if interpret:
-                tb = n_local  # interpret mode has no sublane constraint
-            else:
-                raise ValueError(
-                    f"local shard of {n_local} spectra (N={n} over {ndev} "
-                    f"devices) is smaller than the 8-row sublane tile the "
-                    f"hardware kernel needs — pad N to a multiple of "
-                    f"{8 * ndev} or use fewer devices"
-                )
-    if n_local % tb:
-        raise ValueError(
-            f"local shard of {n_local} spectra (N={n} over {ndev} devices) "
-            f"not divisible by tile_batch={tb}; pad N or pass an explicit "
-            "tile_batch"
-        )
-    fn = make_dp_predict_fn(
-        mesh, has_mask=mask is not None, tau_which=tau_which,
-        tile_batch=tb, stats_only=stats_only, derive_zabs=derive_zabs,
-        interpret=interpret, out_dtype=out_dtype,
-    )
-    args = (
-        params, mu, flux, error, zabs,
-        *([mask] if mask is not None else []),
-        *([loglam] if derive_zabs else []),
-    )
-    return fn(*args)

@@ -8,7 +8,7 @@ Two distinct smoothers exist in the reference and both are reproduced here:
   ``torch.nn.functional.avg_pool1d(..., count_include_pad=False)`` the
   reference applies to the model parameters every few epochs
   (``/root/reference/QFA/model.py:243-252``). Implemented as a fixed-shape
-  cumulative-sum program so it jits and differentiates on TPU.
+  cumulative-sum program so it jits and differentiates.
 """
 
 from __future__ import annotations

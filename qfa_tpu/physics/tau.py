@@ -1,6 +1,6 @@
 """Mean-optical-depth laws and forest-noise redshift evolution.
 
-TPU-native (pure ``jax.numpy``) implementations of the physics functions the
+Pure ``jax.numpy`` implementations of the physics functions the
 reference keeps in ``/root/reference/QFA/utils.py:57-203``:
 
 * ``tau_becker`` / ``tau_fg`` / ``tau_kamble`` / ``tau_mock`` — published
@@ -98,13 +98,11 @@ def resolve_tau(tau_spec) -> str | Callable[[Array], Array]:
     * a law name (``"becker"``/``"fg"``/``"kamble"``/``"mock"``) — validated
       and returned as-is;
     * a ``functools.partial`` carrying a ``which=`` keyword (the reference
-      idiom) — resolved to that name, so ported code keeps its law AND the
-      Pallas fast paths;
+      idiom) — resolved to that name, so ported code keeps its law;
     * one of the law functions themselves (:data:`TAU_LAWS` values) —
       resolved to its name;
-    * any other callable ``tau(z) -> tau`` — returned verbatim: the XLA
-      paths trace it exactly; the Pallas power-law kernels reject it
-      loudly (``ops.fused_step.tau_law_abc``).
+    * any other callable ``tau(z) -> tau`` — returned verbatim and traced
+      exactly.
     """
     if isinstance(tau_spec, str):
         get_tau_law(tau_spec)  # validate the name

@@ -15,9 +15,8 @@ surface at all. For production deployment this module adds one:
   ``ThreadingHTTPServer`` exposing ``POST /predict`` (JSON in/out) and
   ``GET /healthz``.
 
-The device path is the same production code the batch CLI uses: the
-fused single-launch Pallas kernel on TPU, the XLA batched program
-elsewhere (engine auto-selection mirrors ``cli.run_predict``).
+The device path is the same batched program the batch CLI uses
+(:func:`qfa_tpu.models.predict`).
 """
 
 from __future__ import annotations
@@ -54,9 +53,6 @@ class QFAPredictor:
         The one compiled batch shape. Requests are zero-padded up to it
         and chunked above it — no request shape ever triggers a
         recompile (serving latency stays flat after warmup).
-    engine:
-        ``"xla"`` | ``"fused"`` | ``"auto"`` (fused Pallas kernel on
-        TPU, XLA elsewhere — the same selection the batch CLI makes).
     """
 
     def __init__(
@@ -65,15 +61,11 @@ class QFAPredictor:
         *,
         max_batch: int = 64,
         tau_which: str = "becker",
-        engine: str = "auto",
         compat_c0_bug: bool = False,
         lammin: float = REFERENCE_LAMMIN,
         lammax: float = REFERENCE_LAMMAX,
         loglam_delta: float = REFERENCE_LOGLAM_DELTA,
-        interpret: bool = False,
     ) -> None:
-        if engine not in ("auto", "xla", "fused"):
-            raise ValueError(f"unknown engine {engine!r}")
         if max_batch < 1:
             raise ValueError("max_batch must be positive")
         self.params, self.mu = load_npz(
@@ -89,27 +81,7 @@ class QFAPredictor:
                 "trained on"
             )
         self.options = ModelOptions(tau_which=tau_which)
-        if engine == "auto":
-            from .utils import is_tpu
-
-            engine = "fused" if is_tpu() else "xla"
-        self.engine = engine
-        #: run the fused kernel in Pallas interpret mode (testing hook —
-        #: pins the TPU serving path's numerics on the CPU test platform)
-        self._interpret = interpret
-        if engine == "fused":
-            from .ops.infer_kernel import default_tile_batch
-
-            # sublane-align the compiled batch; tiles never exceed the
-            # npix-aware VMEM-safe size and always divide the batch
-            tb = default_tile_batch(self.grid.npix)
-            mb = -(-max_batch // 8) * 8
-            if mb >= tb:
-                mb -= mb % tb
-            self.max_batch = mb
-            self._tile = min(mb, tb)
-        else:
-            self.max_batch = max_batch
+        self.max_batch = max_batch
         self._mu_dev = jnp.asarray(self.mu)
         self._lock = threading.Lock()
         self._requests = 0
@@ -117,17 +89,6 @@ class QFAPredictor:
     # ------------------------------------------------------------------
     def _run_block(self, flux, error, zabs, mask):
         """One fixed-shape (max_batch, Npix) device call."""
-        if self.engine == "fused":
-            from .ops.infer_kernel import fused_predict
-
-            out = fused_predict(
-                self.params, self._mu_dev,
-                jnp.asarray(flux), jnp.asarray(error), jnp.asarray(zabs),
-                jnp.asarray(mask),
-                tau_which=self.options.tau_which, tile_batch=self._tile,
-                interpret=self._interpret,
-            )
-            return out.ll, out.hmean, out.hcov, out.continuum, out.continuum_std
         res = predict(
             self.params, self._mu_dev,
             jnp.asarray(flux), jnp.asarray(error), jnp.asarray(zabs),
@@ -207,7 +168,9 @@ class QFAPredictor:
                 out = self._run_block(
                     prep(flux), prep(error), prep(zabs), prep(mf)
                 )
-                parts.append([np.asarray(o[: e - s]) for o in out])
+                # slice on the host: a device slice compiles once per
+                # request size
+                parts.append([np.asarray(o)[: e - s] for o in out])
         ll, hmean, hcov, cont, std = (
             np.concatenate([p[i] for p in parts]) for i in range(5)
         )
@@ -230,7 +193,6 @@ class QFAPredictor:
             "status": "ok",
             "npix": int(self.grid.npix),
             "nh": int(self.params.F.shape[1]),
-            "engine": self.engine,
             "max_batch": int(self.max_batch),
             "tau": self.options.tau_which,
             "requests": self._requests,
@@ -244,7 +206,7 @@ def make_http_server(
 
     ``POST /predict`` body: ``{"flux": [[...]], "error": [[...]],
     "zqso": [...], "mask": [[...]]?}`` -> the per-spectrum prediction
-    contract as JSON lists. ``GET /healthz`` -> model/engine metadata.
+    contract as JSON lists. ``GET /healthz`` -> model metadata.
     Call ``serve_forever()`` on the result (or use :func:`main`).
     """
 
@@ -303,6 +265,8 @@ def main(argv=None) -> None:
     """``qfa-tpu-serve``: load a checkpoint and serve predictions."""
     import argparse
 
+    from .utils.runtime import setup_compile_cache
+
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--ckpt", required=True, help="model npz checkpoint")
     ap.add_argument("--host", default="127.0.0.1")
@@ -310,23 +274,22 @@ def main(argv=None) -> None:
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--tau", default="becker",
                     choices=["becker", "fg", "kamble", "mock"])
-    ap.add_argument("--engine", default="auto",
-                    choices=["auto", "xla", "fused"])
     ap.add_argument("--compat-c0-bug", action="store_true")
     ap.add_argument("--lammin", type=float, default=REFERENCE_LAMMIN)
     ap.add_argument("--lammax", type=float, default=REFERENCE_LAMMAX)
     ap.add_argument("--dloglam", type=float, default=REFERENCE_LOGLAM_DELTA)
     args = ap.parse_args(argv)
+    setup_compile_cache()
 
     pred = QFAPredictor(
         args.ckpt, max_batch=args.max_batch, tau_which=args.tau,
-        engine=args.engine, compat_c0_bug=args.compat_c0_bug,
+        compat_c0_bug=args.compat_c0_bug,
         lammin=args.lammin, lammax=args.lammax, loglam_delta=args.dloglam,
     )
     pred.warmup()
     srv = make_http_server(pred, args.host, args.port)
     print(
-        f"qfa-tpu-serve: {pred.info['engine']} engine, npix="
+        f"qfa-tpu-serve: npix="
         f"{pred.info['npix']}, nh={pred.info['nh']} — listening on "
         f"http://{args.host}:{srv.server_address[1]}",
         flush=True,

@@ -2,14 +2,6 @@
 
 from . import adam
 from .checkpoint import latest_checkpoint, load_state, save_state
-from .pallas_engine import (
-    fit_pallas,
-    make_pallas_epoch_fn,
-    pallas_train_epoch,
-    pick_divisor_tile,
-    pick_tile_batch,
-    pick_tiling,
-)
 from .loop import (
     TrainConfig,
     TrainState,
@@ -17,7 +9,6 @@ from .loop import (
     fit_streaming,
     guard_nonfinite,
     make_epoch_fn,
-    make_pallas_step_fn,
     make_sliced_epoch_fn,
     make_step_fn,
     reshuffle_dataset,
@@ -32,16 +23,9 @@ __all__ = [
     "TrainConfig",
     "TrainState",
     "fit",
-    "fit_pallas",
-    "make_pallas_epoch_fn",
     "fit_streaming",
-    "pallas_train_epoch",
-    "pick_tile_batch",
-    "pick_divisor_tile",
-    "pick_tiling",
     "guard_nonfinite",
     "make_epoch_fn",
-    "make_pallas_step_fn",
     "make_sliced_epoch_fn",
     "make_step_fn",
     "reshuffle_dataset",

@@ -225,24 +225,6 @@ def test_reference_training_loop_idiom_runs_verbatim(survey):
         assert np.isfinite(np.asarray(leaf)).all()
 
 
-def test_train_engine_validation_and_cpu_fallback(survey, tmp_path):
-    """engine='pallas' on CPU falls back to the XLA trainer with a
-    warning (matching the CLI); unknown engines raise."""
-    import warnings
-
-    root, grid = survey
-    dl = Dataloader(make_cfg(root))
-    qfa = QFA(grid.nb, grid.nr, 3)
-    with pytest.raises(ValueError, match="unknown engine"):
-        qfa.train(dataloader=dl, n_epochs=1, engine="XLA",
-                  output_dir=str(tmp_path / "e1"), quiet=True)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        qfa.train(dataloader=dl, n_epochs=1, engine="pallas",
-                  output_dir=str(tmp_path / "e2"), quiet=True)
-    assert any("no TPU is visible" in str(w.message) for w in caught)
-
-
 def test_set_tau_and_set_device(survey):
     """Dataloader.set_tau/set_device parity
     (/root/reference/QFA/dataloader.py:169-179)."""
@@ -286,9 +268,8 @@ def test_tau_callable_partial_resolves_to_named_law(survey):
 
 
 def test_tau_opaque_callable_is_traced_exactly(survey, tmp_path):
-    """An opaque callable tau(z) flows through the XLA paths verbatim: a
-    hand-rolled fg-equivalent matches tau='fg' bit-for-bit; the Pallas
-    engine refuses it loudly instead of defaulting."""
+    """An opaque callable tau(z) flows through forward and training
+    verbatim: a hand-rolled fg-equivalent matches tau='fg' bit-for-bit."""
     root, grid = survey
     dl = Dataloader(make_cfg(root, ""))
     dl.rewind()
@@ -305,21 +286,7 @@ def test_tau_opaque_callable_is_traced_exactly(survey, tmp_path):
     np.testing.assert_allclose(np.asarray(grads_c["tau0"]),
                                np.asarray(grads_n["tau0"]), rtol=1e-6)
 
-    with pytest.raises(ValueError, match="named tau law"):
-        model_c.train(dataloader=dl, n_epochs=1, engine="pallas",
-                      quiet=True, output_dir=str(tmp_path / "p"))
-    # the XLA engine trains with the exact callable
-    model_c.train(dataloader=dl, n_epochs=1, engine="xla", quiet=True,
+    # training uses the exact callable
+    model_c.train(dataloader=dl, n_epochs=1, quiet=True,
                   output_dir=str(tmp_path / "x"), weight_decay=0.0)
     assert np.isfinite(np.asarray(model_c.parameters["F"])).all()
-
-
-def test_pallas_kernels_reject_tau_callable():
-    """tau_law_abc guards every Pallas entry point."""
-    from qfa_tpu.ops.fused_step import tau_law_abc
-
-    with pytest.raises(ValueError, match="named mean-optical-depth"):
-        tau_law_abc(lambda z: z)
-    with pytest.raises(NotImplementedError):
-        tau_law_abc("nope")
-    assert tau_law_abc("becker")[1] == 2.90

@@ -18,9 +18,9 @@ def test_defaults_match_reference_keys():
     assert cfg.TRAIN.WEIGHT_DECAY == 0.1
     assert cfg.TRAIN.DECAY_ALPHA == 0.9
     assert cfg.TRAIN.DECAY_STEP == 10
-    # bf16 MXU passes are the production default (gated by bench.py's
-    # 55-epoch hardware drift check and the interpret trajectory tests)
-    assert cfg.TRAIN.MXU_BF16 is True
+    # the keys of the removed kernel engines are gone; storage stays f32
+    assert "MXU_BF16" not in cfg.TRAIN and "ENGINE" not in cfg.TRAIN
+    assert cfg.TRAIN.BF16_PLANES is False
 
 
 def test_yaml_base_inheritance(tmp_path):

@@ -1,4 +1,6 @@
-"""Fused Pallas inference kernel vs the XLA predict path (interpret mode)."""
+"""The predictor's survey options — stats-only output and the compact input
+(mask derived from ``error > 0``, ``log1p(zqso)`` column in place of the
+absorber-redshift plane) — against the four-plane predict path."""
 
 import jax
 import jax.numpy as jnp
@@ -6,9 +8,9 @@ import numpy as np
 import pytest
 
 import qfa_tpu
+from qfa_tpu.data.grid import loglam_row, zq_column
 from qfa_tpu.data.synthetic import generate
 from qfa_tpu.models import predict, random_init
-from qfa_tpu.ops.infer_kernel import fused_predict
 
 
 @pytest.fixture(scope="module")
@@ -26,14 +28,19 @@ def problem():
     return grid, params, mu, syn
 
 
+def compact(grid, syn):
+    """The compact input: masked flux/error, zq column, loglam row."""
+    return (syn.flux * syn.mask, syn.error * syn.mask, zq_column(syn.zqso),
+            loglam_row(grid.wav))
+
+
 def test_fused_predict_matches_xla_predict(problem):
+    """Compact input (derived mask + zq column) == the four-plane path."""
     grid, params, mu, syn = problem
     ref = predict(params, mu, syn.flux, syn.error * syn.mask, syn.zabs,
                   syn.mask)
-    out = fused_predict(
-        params, mu, syn.flux * syn.mask, syn.error * syn.mask, syn.zabs,
-        syn.mask, tile_batch=8, interpret=True,
-    )
+    flux, error, zq, llrow = compact(grid, syn)
+    out = predict(params, mu, flux, error, zq, None, loglam=llrow)
     np.testing.assert_allclose(np.asarray(out.ll), np.asarray(ref.ll),
                                rtol=2e-5)
     np.testing.assert_allclose(np.asarray(out.hmean), np.asarray(ref.hmean),
@@ -53,10 +60,8 @@ def test_fused_predict_derived_mask(problem):
     grid, params, mu, syn = problem
     flux = syn.flux * syn.mask
     error = syn.error * syn.mask
-    out_m = fused_predict(params, mu, flux, error, syn.zabs, syn.mask,
-                          tile_batch=8, interpret=True)
-    out_d = fused_predict(params, mu, flux, error, syn.zabs, None,
-                          tile_batch=8, interpret=True)
+    out_m = predict(params, mu, flux, error, syn.zabs, syn.mask)
+    out_d = predict(params, mu, flux, error, syn.zabs, None)
     np.testing.assert_allclose(np.asarray(out_d.ll), np.asarray(out_m.ll),
                                rtol=1e-6)
     np.testing.assert_allclose(np.asarray(out_d.continuum),
@@ -64,18 +69,12 @@ def test_fused_predict_derived_mask(problem):
 
 
 def test_fused_predict_derive_zabs(problem):
-    """The zq-column mode (in-kernel absorber redshifts) matches the
-    zabs-plane run to float32 rounding."""
-    from qfa_tpu.ops import loglam_row, zq_column
-
+    """The zq-column input (absorber redshifts rebuilt on the device)
+    matches the zabs-plane run to float32 rounding."""
     grid, params, mu, syn = problem
-    flux = syn.flux * syn.mask
-    error = syn.error * syn.mask
-    out_p = fused_predict(params, mu, flux, error, syn.zabs, syn.mask,
-                          tile_batch=8, interpret=True)
-    out_c = fused_predict(params, mu, flux, error, zq_column(syn.zqso),
-                          syn.mask, tile_batch=8, interpret=True,
-                          loglam=loglam_row(grid.wav), derive_zabs=True)
+    flux, error, zq, llrow = compact(grid, syn)
+    out_p = predict(params, mu, flux, error, syn.zabs, syn.mask)
+    out_c = predict(params, mu, flux, error, zq, syn.mask, loglam=llrow)
     np.testing.assert_allclose(np.asarray(out_c.ll), np.asarray(out_p.ll),
                                rtol=1e-5)
     np.testing.assert_allclose(np.asarray(out_c.hmean),
@@ -90,7 +89,7 @@ def test_fused_predict_derive_zabs(problem):
     reason="reference data artifacts not present",
 )
 def test_fused_predict_golden_file():
-    """The kernel reproduces the reference's stored golden outputs."""
+    """The compact input reproduces the reference's stored golden outputs."""
     from qfa_tpu.models import load_npz
 
     grid = qfa_tpu.make_grid()
@@ -101,39 +100,24 @@ def test_fused_predict_golden_file():
     mask = np.asarray(s["mask"], bool)
     flux = np.where(mask, s["flux"], 0.0).astype(np.float32)
     error = np.where(mask, s["error"], 0.0).astype(np.float32)
-    zabs = grid.zabs(np.array([float(s["z"])])).astype(np.float32)
-    out = fused_predict(
+    out = predict(
         params, mu,
         jnp.asarray(flux)[None], jnp.asarray(error)[None],
-        jnp.asarray(zabs), jnp.asarray(mask, jnp.float32)[None],
-        tile_batch=1, interpret=True,
+        zq_column(jnp.asarray([float(s["z"])])),
+        jnp.asarray(mask, jnp.float32)[None],
+        loglam=loglam_row(grid.wav),
     )
     assert float(out.ll[0]) == pytest.approx(float(s["ll"]), abs=5e-3)
     np.testing.assert_allclose(np.asarray(out.hmean[0]), s["h"], atol=5e-5)
     np.testing.assert_allclose(np.asarray(out.continuum[0]), s["our"],
                                atol=5e-5)
 
-    # the zq-column mode hits the same golden values
-    from qfa_tpu.ops import loglam_row, zq_column
-
-    out_c = fused_predict(
-        params, mu,
-        jnp.asarray(flux)[None], jnp.asarray(error)[None],
-        zq_column(jnp.asarray([float(s["z"])])),
-        jnp.asarray(mask, jnp.float32)[None],
-        tile_batch=1, interpret=True,
-        loglam=loglam_row(grid.wav), derive_zabs=True,
-    )
-    assert float(out_c.ll[0]) == pytest.approx(float(s["ll"]), abs=5e-3)
-    np.testing.assert_allclose(np.asarray(out_c.continuum[0]), s["our"],
-                               atol=5e-5)
-
 
 def test_predict_dataset_fused_matches_host_path(problem):
-    """The chunked fused-kernel driver equals predict_dataset (host path),
-    including tail-chunk padding."""
+    """The resident stats-only sweep in the compact input equals
+    predict_dataset (host path with padded tail batches)."""
     from qfa_tpu.data.loader import SpectraDataset
-    from qfa_tpu.infer import predict_dataset, predict_dataset_fused
+    from qfa_tpu.infer import predict_dataset, predict_resident
 
     grid, params, mu, syn = problem
     m = np.asarray(syn.mask) > 0
@@ -144,27 +128,28 @@ def test_predict_dataset_fused_matches_host_path(problem):
         zqso=np.asarray(syn.zqso, np.float32),
         paths=(),
     )
-    a = predict_dataset(params, mu, ds, grid, batch_size=8)
-    # chunk=16 with 32 spectra and tile 8 -> 2 chunks; then chunk=24 forces
-    # a padded tail chunk
-    for chunk in (16, 24):
-        b = predict_dataset_fused(params, mu, ds, grid, chunk=chunk,
-                                  tile_batch=8, interpret=True)
+    # 32 spectra in batches of 12 -> a padded tail batch
+    a = predict_dataset(params, mu, ds, grid, batch_size=12)
+    flux, error, zq, llrow = compact(grid, syn)
+    for batch_size in (8, 16):
+        b = predict_resident(params, mu, flux, error, zq, None,
+                             batch_size=batch_size, stats_only=True,
+                             loglam=llrow)
+        assert b.continuum is None
         np.testing.assert_allclose(np.asarray(b.ll), np.asarray(a.ll),
                                    rtol=2e-5)
-        np.testing.assert_allclose(np.asarray(b.continuum),
-                                   np.asarray(a.continuum), rtol=1e-4,
-                                   atol=1e-5)
+        np.testing.assert_allclose(np.asarray(b.hmean), np.asarray(a.hmean),
+                                   rtol=1e-4, atol=1e-6)
         np.testing.assert_allclose(np.asarray(b.hcov), np.asarray(a.hcov),
                                    rtol=1e-4, atol=1e-7)
 
 
 def test_predict_dataset_fused_unsanitized_mask(problem):
     """When masked pixels carry error > 0 (mask not derivable from the
-    error plane), the chunked driver ships the mask plane and still
-    matches the host path."""
+    error plane), passing the mask plane still matches the host path,
+    while deriving it would not."""
     from qfa_tpu.data.loader import SpectraDataset
-    from qfa_tpu.infer import predict_dataset, predict_dataset_fused
+    from qfa_tpu.infer import predict_dataset
 
     grid, params, mu, syn = problem
     m = np.asarray(syn.mask) > 0
@@ -177,28 +162,27 @@ def test_predict_dataset_fused_unsanitized_mask(problem):
     )
     assert not bool(np.all((ds.error > 0.0) == ds.mask))
     a = predict_dataset(params, mu, ds, grid, batch_size=8)
-    b = predict_dataset_fused(params, mu, ds, grid, chunk=16, tile_batch=8,
-                              interpret=True)
+    zq, llrow = zq_column(syn.zqso), loglam_row(grid.wav)
+    b = predict(params, mu, ds.flux, ds.error, zq, syn.mask, loglam=llrow)
     np.testing.assert_allclose(np.asarray(b.ll), np.asarray(a.ll), rtol=2e-5)
     np.testing.assert_allclose(np.asarray(b.continuum),
                                np.asarray(a.continuum), rtol=1e-4, atol=1e-5)
+    derived = predict(params, mu, ds.flux, ds.error, zq, None, loglam=llrow)
+    assert not np.allclose(np.asarray(derived.ll), np.asarray(a.ll),
+                           rtol=2e-5)
 
 
 def test_fused_predict_fully_masked_rows(problem):
-    """Fully-masked rows are inert: ll = 0, n_obs = 0, posterior = prior."""
+    """Fully-masked rows are inert: ll = 0, posterior = prior."""
     grid, params, mu, syn = problem
-    flux = np.array(syn.flux * syn.mask)
-    error = np.array(syn.error * syn.mask)
-    mask = np.array(syn.mask)
+    flux, error, zq, llrow = compact(grid, syn)
+    flux = np.array(flux)
+    error = np.array(error)
     flux[3] = 0.0
     error[3] = 0.0
-    mask[3] = 0.0
-    out = fused_predict(
-        params, mu, jnp.asarray(flux), jnp.asarray(error), syn.zabs,
-        jnp.asarray(mask), tile_batch=8, interpret=True,
-    )
+    out = predict(params, mu, jnp.asarray(flux), jnp.asarray(error), zq,
+                  None, loglam=llrow)
     assert float(out.ll[3]) == 0.0
-    assert float(out.n_obs[3]) == 0.0
     # prior posterior: hmean = 0, hcov = I
     np.testing.assert_allclose(np.asarray(out.hmean[3]), 0.0, atol=1e-6)
     np.testing.assert_allclose(np.asarray(out.hcov[3]),
@@ -207,10 +191,7 @@ def test_fused_predict_fully_masked_rows(problem):
     np.testing.assert_allclose(np.asarray(out.continuum[3]),
                                np.asarray(mu), atol=1e-5)
     # other rows unaffected
-    ref = fused_predict(
-        params, mu, syn.flux * syn.mask, syn.error * syn.mask, syn.zabs,
-        syn.mask, tile_batch=8, interpret=True,
-    )
+    ref = predict(params, mu, *compact(grid, syn)[:3], None, loglam=llrow)
     np.testing.assert_allclose(np.asarray(out.ll[:3]), np.asarray(ref.ll[:3]),
                                rtol=1e-6)
 
@@ -218,12 +199,10 @@ def test_fused_predict_fully_masked_rows(problem):
 def test_fused_predict_stats_only(problem):
     """OOD-sweep mode: same ll/posterior, no continuum planes."""
     grid, params, mu, syn = problem
-    flux = syn.flux * syn.mask
-    error = syn.error * syn.mask
-    full = fused_predict(params, mu, flux, error, syn.zabs, syn.mask,
-                         tile_batch=8, interpret=True)
-    lean = fused_predict(params, mu, flux, error, syn.zabs, syn.mask,
-                         tile_batch=8, interpret=True, stats_only=True)
+    flux, error, zq, llrow = compact(grid, syn)
+    full = predict(params, mu, flux, error, zq, None, loglam=llrow)
+    lean = predict(params, mu, flux, error, zq, None, loglam=llrow,
+                   stats_only=True)
     assert lean.continuum is None and lean.continuum_std is None
     np.testing.assert_allclose(np.asarray(lean.ll), np.asarray(full.ll),
                                rtol=1e-6)
@@ -233,107 +212,48 @@ def test_fused_predict_stats_only(problem):
                                rtol=1e-6)
 
 
-def test_fused_predict_desi_width_auto_tile():
-    """DESI-scale fused inference (VERDICT r2 #2): the npix-aware tile
-    heuristic picks a VMEM-safe 128-row tile at Npix=9243 (a fixed 256
-    fails to compile at that width on hardware; sub-128 tiles cannot
-    lower at all — the lane-major stats output needs a 128-multiple
-    minor block, so 128 is the floor for arbitrarily wide grids too),
-    and the chunked driver matches the XLA predict path on the real
-    DESI grid."""
-    from qfa_tpu.data.loader import SpectraDataset
-    from qfa_tpu.infer import predict_dataset, predict_dataset_fused
-    from qfa_tpu.ops.infer_kernel import default_tile_batch
-
-    grid = qfa_tpu.make_grid(1113.5772, 1600.0, 1.7029661e-05)
-    assert grid.npix == 9243
-    assert default_tile_batch(grid.npix) == 128
-    assert default_tile_batch(1913) == 256
-    assert default_tile_batch(16000) == 128  # the lowering floor
-
-    nh = 4
-    params = random_init(jax.random.key(0), grid.npix, grid.nb, nh)
-    mu = jnp.linspace(0.9, 1.3, grid.npix).astype(jnp.float32)
-    n = 80  # not a tile multiple: exercises the padded tail at auto tile
-    syn = generate(jax.random.key(1), params, mu, grid, n, mask_frac=0.1)
-    m = np.asarray(syn.mask) > 0
-    ds = SpectraDataset(
-        flux=np.where(m, np.asarray(syn.flux), 0.0).astype(np.float32),
-        error=np.where(m, np.asarray(syn.error), 0.0).astype(np.float32),
-        mask=m,
-        zqso=np.asarray(syn.zqso, np.float32),
-        paths=(),
-    )
-    a = predict_dataset(params, mu, ds, grid, batch_size=40)
-    b = predict_dataset_fused(params, mu, ds, grid, interpret=True)
-    np.testing.assert_allclose(np.asarray(b.ll), np.asarray(a.ll), rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(b.continuum),
-                               np.asarray(a.continuum), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(b.hmean), np.asarray(a.hmean),
-                               rtol=1e-4, atol=1e-6)
-
-
 def test_fused_predict_bf16_planes(problem):
-    """bfloat16 flux/error streaming tracks the f32 run within the data
+    """bfloat16 flux/error storage tracks the f32 run within the data
     quantization level (survey-scale OOD sweeps)."""
     grid, params, mu, syn = problem
-    flux = syn.flux * syn.mask
-    error = syn.error * syn.mask
-    a = fused_predict(params, mu, flux, error, syn.zabs, None,
-                      tile_batch=8, interpret=True)
-    b = fused_predict(params, mu, flux.astype(jnp.bfloat16),
-                      error.astype(jnp.bfloat16), syn.zabs, None,
-                      tile_batch=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(b.n_obs), np.asarray(a.n_obs))
+    flux, error, zq, llrow = compact(grid, syn)
+    a = predict(params, mu, flux, error, zq, None, loglam=llrow)
+    b = predict(params, mu, flux.astype(jnp.bfloat16),
+                error.astype(jnp.bfloat16), zq, None, loglam=llrow)
     np.testing.assert_allclose(np.asarray(b.ll), np.asarray(a.ll), rtol=2e-2)
     np.testing.assert_allclose(np.asarray(b.continuum),
                                np.asarray(a.continuum), rtol=5e-2, atol=2e-2)
 
 
 def test_fused_predict_bf16_out(problem):
-    """out_dtype=bfloat16 halves the continuum/std planes' HBM footprint:
-    the planes come back bfloat16 within bf16 quantization of the f32
-    run, and every per-spectrum stat (ll, posterior, counts) stays f32
-    and BITWISE equal (the cast happens only at the plane store)."""
+    """bfloat16-stored planes are computed in float32: every output comes
+    back float32, and the stats-only sweep equals the full run on them."""
     grid, params, mu, syn = problem
-    flux = syn.flux * syn.mask
-    error = syn.error * syn.mask
-    a = fused_predict(params, mu, flux, error, syn.zabs, None,
-                      tile_batch=8, interpret=True)
-    b = fused_predict(params, mu, flux, error, syn.zabs, None,
-                      tile_batch=8, interpret=True, out_dtype=jnp.bfloat16)
-    assert b.continuum.dtype == jnp.bfloat16
-    assert b.continuum_std.dtype == jnp.bfloat16
-    for name in ("ll", "hmean", "hcov", "n_obs"):
-        got = getattr(b, name)
-        assert got.dtype == jnp.float32
-        np.testing.assert_array_equal(np.asarray(got),
-                                      np.asarray(getattr(a, name)),
-                                      err_msg=name)
-    np.testing.assert_allclose(
-        np.asarray(b.continuum, np.float32), np.asarray(a.continuum),
-        rtol=1e-2, atol=1e-2,
-    )
-    np.testing.assert_allclose(
-        np.asarray(b.continuum_std, np.float32),
-        np.asarray(a.continuum_std), rtol=1e-2, atol=1e-2,
-    )
+    flux, error, zq, llrow = compact(grid, syn)
+    flux, error = flux.astype(jnp.bfloat16), error.astype(jnp.bfloat16)
+    full = predict(params, mu, flux, error, zq, None, loglam=llrow)
+    lean = predict(params, mu, flux, error, zq, None, loglam=llrow,
+                   stats_only=True)
+    for name in ("ll", "hmean", "hcov", "continuum", "continuum_std"):
+        assert getattr(full, name).dtype == jnp.float32, name
+    for name in ("ll", "hmean", "hcov"):
+        np.testing.assert_allclose(np.asarray(getattr(lean, name)),
+                                   np.asarray(getattr(full, name)),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
 
 
 @pytest.mark.parametrize("nh", [1, 10])
 def test_fused_predict_stats_layout_nh_edges(nh):
-    """Stats packing at the latent-dim edges: nh=1 (single 8-row stats
-    block) and nh=10 (112 stats rows — the largest the ll+n_obs+hmean+
-    hcov layout admits under the 128-lane cap)."""
+    """Stats-only sweep in the compact input at the latent-dim edges."""
     grid = qfa_tpu.make_grid(1030.0, 1060.0, 1e-3)
     params = random_init(jax.random.key(3), grid.npix, grid.nb, nh)
     mu = jnp.linspace(0.9, 1.3, grid.npix).astype(jnp.float32)
     syn = generate(jax.random.key(4), params, mu, grid, 16, mask_frac=0.1)
     ref = predict(params, mu, syn.flux, syn.error * syn.mask, syn.zabs,
                   syn.mask)
-    out = fused_predict(params, mu, syn.flux * syn.mask,
-                        syn.error * syn.mask, syn.zabs, syn.mask,
-                        tile_batch=8, interpret=True)
+    flux, error, zq, llrow = compact(grid, syn)
+    out = predict(params, mu, flux, error, zq, None, loglam=llrow,
+                  stats_only=True)
     np.testing.assert_allclose(np.asarray(out.ll), np.asarray(ref.ll),
                                rtol=2e-5)
     np.testing.assert_allclose(np.asarray(out.hmean), np.asarray(ref.hmean),
@@ -343,32 +263,20 @@ def test_fused_predict_stats_layout_nh_edges(nh):
     assert out.hcov.shape == (16, nh, nh)
 
 
-def test_fused_predict_rejects_oversized_nh():
-    """nh=11 needs 2+11+121 = 134 > 128 stats entries — refused loudly."""
-    grid = qfa_tpu.make_grid(1030.0, 1060.0, 1e-3)
-    params = random_init(jax.random.key(3), grid.npix, grid.nb, 11)
-    mu = jnp.ones((grid.npix,), jnp.float32)
-    z = jnp.zeros((8, grid.npix), jnp.float32)
-    with pytest.raises(ValueError, match="nh"):
-        fused_predict(params, mu, z, z, z, None, tile_batch=8,
-                      interpret=True)
-
-
 def test_fused_predict_permutation_equivariant(problem):
-    """Each spectrum's outputs are independent of its tile neighbors:
-    permuting the batch permutes every output identically (lane-dot math
-    is per-lane, so this holds exactly in interpret mode)."""
+    """Each spectrum's outputs are independent of its batch neighbours:
+    permuting the batch permutes every output."""
     grid, params, mu, syn = problem
-    flux = syn.flux * syn.mask
-    error = syn.error * syn.mask
+    flux, error, zq, llrow = compact(grid, syn)
     perm = np.random.default_rng(5).permutation(flux.shape[0])
-    a = fused_predict(params, mu, flux, error, syn.zabs, syn.mask,
-                      tile_batch=8, interpret=True)
-    b = fused_predict(params, mu, flux[perm], error[perm], syn.zabs[perm],
-                      syn.mask[perm], tile_batch=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(b.ll),
-                                  np.asarray(a.ll)[perm])
-    np.testing.assert_array_equal(np.asarray(b.hmean),
-                                  np.asarray(a.hmean)[perm])
-    np.testing.assert_array_equal(np.asarray(b.continuum),
-                                  np.asarray(a.continuum)[perm])
+    a = predict(params, mu, flux, error, zq, None, loglam=llrow)
+    b = predict(params, mu, flux[perm], error[perm], zq[perm], None,
+                loglam=llrow)
+    np.testing.assert_allclose(np.asarray(b.ll), np.asarray(a.ll)[perm],
+                               rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(b.hmean),
+                               np.asarray(a.hmean)[perm], rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(np.asarray(b.continuum),
+                               np.asarray(a.continuum)[perm], rtol=1e-6,
+                               atol=1e-7)

@@ -1,4 +1,4 @@
-"""Multi-chip data parallelism on the 8-virtual-device CPU mesh.
+"""Multi-device data parallelism on the 8-virtual-device CPU mesh.
 
 Validates the SPMD training path: sharded resident dataset, per-shard
 shuffling, psum'd gradient/count statistics — against the single-device
@@ -182,358 +182,78 @@ def test_initialize_distributed_error_handling(monkeypatch):
         initialize_distributed(coordinator_address="h:1")
 
 
-def test_dp_pallas_engine_matches_xla_engine(problem):
-    """DP with per-step Pallas local statistics == DP with XLA autodiff
-    statistics (same psum'd update), on the 8-device mesh."""
+
+@pytest.mark.parametrize("reference_norm", [True, False])
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+def test_dp_epoch_mesh_sizes_match_single_device(problem, ndev,
+                                                 reference_norm):
+    """Exact DP on every mesh size, under both gradient normalizations,
+    follows the single-device epoch on the same global batches."""
     grid, data = problem
-    mesh = make_mesh(NDEV)
-    cfg = TrainConfig(batch_size=32, learning_rate=1e-2, weight_decay=0.01)
-    idx = shard_epoch_indices(jax.random.key(5), data.size, cfg.batch_size,
-                              mesh)
-    sharded = shard_dataset(data, mesh)
-
-    st_x, loss_x = make_dp_epoch_fn(cfg, mesh)(
-        fresh_state(grid), sharded, idx
+    mesh = make_mesh(ndev)
+    cfg = TrainConfig(batch_size=32, learning_rate=1e-2, weight_decay=0.01,
+                      reference_norm=reference_norm)
+    idx = shard_epoch_indices(jax.random.key(10 + ndev), data.size,
+                              cfg.batch_size, mesh)
+    st_dp, loss_dp = make_dp_epoch_fn(cfg, mesh)(
+        fresh_state(grid), shard_dataset(data, mesh), idx
     )
-    sharded2 = shard_dataset(data, mesh)
-    st_p, loss_p = make_dp_epoch_fn(cfg, mesh, engine="pallas",
-                                    interpret=True)(
-        fresh_state(grid), sharded2, idx
+    shard = data.size // ndev
+    idx_host = np.asarray(jax.device_get(idx.idx))
+    global_idx = np.concatenate(
+        [idx_host[d] + d * shard for d in range(ndev)], axis=1
     )
-    assert float(loss_p) == pytest.approx(float(loss_x), rel=1e-5)
-    for a, b in zip(jax.tree.leaves(st_p.params), jax.tree.leaves(st_x.params)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-4, atol=1e-5)
-
-
-def test_epoch_dp_single_device_matches_fused_epoch(problem):
-    """The multi-chip whole-epoch engine on a 1-device mesh reduces
-    exactly to the single-launch fused epoch (pmean is identity)."""
-    from qfa_tpu.ops.epoch_kernel import fused_train_epoch
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(1)
-    cfg = TrainConfig(batch_size=32, learning_rate=1e-2, weight_decay=0.01)
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    st = fresh_state(grid)
-    key = jax.random.key(7)
-    new_state, loss = fn(st, shard_dataset(data, mesh), key)
-    assert np.isfinite(float(loss))
-
-    # reference computation: the raw kernel with the same folded perm
-    perm = jax.random.permutation(
-        jax.random.fold_in(key, jnp.asarray(0, jnp.uint32)), 128 // 8
+    st_1, loss_1 = make_epoch_fn(cfg)(
+        fresh_state(grid), data, jnp.asarray(global_idx)
     )
-    out = fused_train_epoch(
-        st.params, st.opt_state.m, st.opt_state.v,
-        data.delta, data.error, data.zabs, perm, data.mask,
-        epoch=st.opt_state.epoch, n_batches=128 // 32, tile_batch=8,
-        learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
-        interpret=True,
+    assert float(loss_dp) == pytest.approx(float(loss_1), rel=1e-5)
+    for a, b in zip(jax.tree.leaves(st_dp.params),
+                    jax.tree.leaves(st_1.params)):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=5e-4, atol=1e-5
+        )
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (2, 4)])
+def test_2d_mesh_shapes_match_single_device(shape):
+    """The (data, pix) step on every 2-D mesh shape equals one device."""
+    from qfa_tpu.parallel.tp import (
+        make_mesh_2d,
+        make_tp_step_fn,
+        shard_batch_2d,
+        shard_params_2d,
     )
-    np.testing.assert_allclose(np.asarray(new_state.params.F),
-                               np.asarray(out.params.F), rtol=1e-6,
-                               atol=1e-8)
+    from qfa_tpu.train.loop import make_step_fn
 
-
-def test_epoch_dp_default_tile_is_npix_aware(problem):
-    """tile_batch=None resolves via pick_tile_batch (divides the local
-    batch, never a hardcoded 256) and matches an explicit-tile run."""
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(NDEV)
-    cfg = TrainConfig(batch_size=64, learning_rate=1e-2, weight_decay=0.0)
-    sharded = shard_dataset(data, mesh)
-    st = fresh_state(grid)
-    key = jax.random.key(11)
-    # local batch is 8, so the auto tile must resolve to 8 — identical
-    # trajectory to tile_batch=8
-    st_a, loss_a = make_epoch_dp_fn(cfg, mesh, interpret=True)(
-        st, sharded, key
-    )
-    st_b, loss_b = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)(
-        fresh_state(grid), sharded, key
-    )
-    assert float(loss_a) == pytest.approx(float(loss_b), rel=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(st_a.params.F), np.asarray(st_b.params.F), rtol=1e-6
-    )
-
-
-def test_epoch_dp_rejects_misaligned_tile_on_hardware(problem):
-    """Off interpret mode, a sublane-misaligned resolved tile fails with
-    a clear ValueError instead of an obscure Mosaic layout error."""
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(2)
-    # local batch 12 -> explicit tile clamps to 12, not a multiple of 8
-    cfg = TrainConfig(batch_size=24, learning_rate=1e-2, weight_decay=0.0)
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=256, interpret=False)
-    with pytest.raises(ValueError, match="sublane-aligned"):
-        fn(fresh_state(grid), shard_dataset(data, mesh), jax.random.key(0))
-
-
-def test_epoch_dp_multi_device_trains(problem):
-    """8-device local-SGD epochs: one kernel launch per device, one
-    pmean per epoch; the loss decreases and the state stays replicated
-    and finite."""
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(NDEV)
-    cfg = TrainConfig(batch_size=64, learning_rate=1e-2, weight_decay=0.0)
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    sharded = shard_dataset(data, mesh)
-    st = fresh_state(grid)
-    losses = []
-    for epoch in range(3):
-        st, loss = fn(st, sharded, jax.random.fold_in(jax.random.key(9),
-                                                      epoch))
-        losses.append(float(loss))
-    assert np.isfinite(losses).all()
-    assert losses[-1] < losses[0]  # it actually learns
-    for leaf in jax.tree.leaves(st.params):
-        assert np.isfinite(np.asarray(leaf)).all()
-    # replicated output: every device holds identical parameters
-    shards = st.params.F.addressable_shards
-    ref = np.asarray(shards[0].data)
-    for s in shards[1:]:
-        np.testing.assert_array_equal(np.asarray(s.data), ref)
-
-
-def test_epoch_dp_global_loss_bookkeeping(problem):
-    """Per-global-batch loss sums are psum'd across devices before the
-    batch-mean division: the reported epoch-0 loss equals the true global
-    mean NLL of the initial model (no updates applied yet when the first
-    batch is scored)."""
-    from qfa_tpu.models.qfa import mean_nll
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(NDEV)
-    # ONE global batch spanning the full dataset: the whole epoch is a
-    # single pre-update likelihood evaluation on every device
-    cfg = TrainConfig(batch_size=128, learning_rate=1e-2, weight_decay=0.0)
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    st = fresh_state(grid)
-    _, loss = fn(st, shard_dataset(data, mesh), jax.random.key(3))
-    batch = SpectraBatch(
-        delta=data.delta, error=data.error, zabs=data.zabs, mask=data.mask,
-        weight=jnp.ones((128,), jnp.float32),
-    )
-    expected = float(mean_nll(fresh_state(grid).params, batch))
-    assert float(loss) == pytest.approx(expected, rel=1e-5)
-
-
-def test_fit_pallas_mesh_end_to_end(problem, tmp_path):
-    """fit_pallas(mesh=...) drives the multi-chip whole-epoch engine with
-    all the epoch-boundary amenities: checkpoints, resume, early-stop
-    machinery, tail-batch padding — on a 2-device mesh in the production
-    zq-column layout."""
-    import os
-
-    from qfa_tpu.ops import loglam_row, zq_column
-    from qfa_tpu.train import fit_pallas
-    from qfa_tpu.train.checkpoint import latest_checkpoint, load_state
-    from qfa_tpu.data.synthetic import generate
-
-    grid = qfa_tpu.make_grid(1030.0, 1080.0, 1e-3)
+    grid = qfa_tpu.make_grid(1030.0, 1080.0, 7.4e-4)
+    assert grid.npix % shape[1] == 0
     true = random_init(jax.random.key(0), grid.npix, grid.nb, 4)
     mu = jnp.ones((grid.npix,), jnp.float32)
-    syn = generate(jax.random.key(1), true, mu, grid, 120, mask_frac=0.15)
+    syn = generate(jax.random.key(1), true, mu, grid, 32, mask_frac=0.15)
     b = syn.to_batch(mu)
-    # production layout; 120 rows with batch 32 -> padded to 128 (the zq
-    # weight lane keeps the 8 pad rows out of n_real)
-    data = ResidualDataset(
-        delta=b.delta * b.mask, error=b.error * b.mask,
-        zabs=zq_column(syn.zqso), mask=None,
-    )
-    mesh = make_mesh(2)
-    cfg = TrainConfig(n_epochs=3, batch_size=32, learning_rate=1e-2,
-                      weight_decay=0.0, smooth_interval=2, save_interval=2)
-    p0 = random_init(jax.random.key(5), grid.npix, grid.nb, 4)
-    out = str(tmp_path / "mesh_fit")
-    kw = dict(key=jax.random.key(6), tile_batch=8, derive_mask=True,
-              loglam=loglam_row(grid.wav), mesh=mesh, interpret=True)
-    params, hist = fit_pallas(p0, data, mu, cfg, output_dir=out, **kw)
-    assert len(hist) == 3 and np.isfinite(hist).all()
-    assert hist[-1] < hist[0]
-    assert os.path.exists(f"{out}/checkpoints/state_epoch_02.npz")
-
-    # resume from the snapshot -> continues (same engine, same mesh)
-    st, _ = load_state(latest_checkpoint(f"{out}/checkpoints"))
-    assert int(st.opt_state.epoch) == 2
-    params_b, hist_b = fit_pallas(None, data, mu, cfg, initial_state=st,
-                                  **kw)
-    assert len(hist_b) == 1
-    assert hist_b[0] == pytest.approx(hist[2], rel=1e-5)
-
-    with pytest.raises(ValueError, match="reshuffle_interval"):
-        fit_pallas(p0, data, mu, cfg, reshuffle_interval=2, **kw)
-
-
-def test_epoch_dp_scalar_leaves_survive_fused_collective(problem):
-    """The fused single-psum pack/unpack must round-trip scalar leaves
-    (tau0/c0/beta and their moments) exactly — a wrong slice offset would
-    scramble the physical scalars silently."""
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(NDEV)
-    cfg = TrainConfig(batch_size=64, learning_rate=1e-2, weight_decay=0.0)
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    st = fresh_state(grid)
-    new_state, _ = fn(st, shard_dataset(data, mesh), jax.random.key(4))
-    for leaf, ref_leaf in zip(jax.tree.leaves(new_state.params),
-                              jax.tree.leaves(st.params)):
-        assert leaf.shape == ref_leaf.shape
-    # scalars stay scalars and in physical range (clip bounds applied
-    # in-kernel)
-    assert new_state.params.tau0.shape == ()
-    assert 0.0 < float(new_state.params.beta) < 10.0
-    assert np.isfinite(float(new_state.params.c0))
-    # moments keep their structure too
-    assert new_state.opt_state.m.F.shape == st.params.F.shape
-    assert new_state.opt_state.v.omega.shape == st.params.omega.shape
-
-
-def test_epoch_dp_chunked_one_device_matches_chained(problem):
-    """epochs_per_launch on a 1-device mesh: pmean is identity, so the
-    chunked fn must reproduce the per-epoch-sync'd trajectory BITWISE —
-    this pins the chunk fn's base-key -> per-epoch-subkey derivation
-    against the cadence fit_pallas uses for epl == 1."""
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    mesh = make_mesh(1)
     cfg = TrainConfig(batch_size=32, learning_rate=1e-2, weight_decay=0.01)
-    sharded = shard_dataset(data, mesh)
-    base = jax.random.key(11)
-
-    st = fresh_state(grid)
-    fn1 = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    chained_losses = []
-    for e in range(3):
-        st, loss = fn1(st, sharded, jax.random.fold_in(base, e))
-        chained_losses.append(float(loss))
-
-    fn3 = make_epoch_dp_fn(
-        cfg, mesh, tile_batch=8, epochs_per_launch=3, interpret=True
+    batch = SpectraBatch(
+        delta=b.delta, error=b.error, zabs=b.zabs, mask=b.mask,
+        weight=jnp.ones((32,), jnp.float32),
     )
-    st3, losses = fn3(fresh_state(grid), sharded, base)
-    assert losses.shape == (3,)
-    np.testing.assert_array_equal(
-        np.asarray(losses), np.asarray(chained_losses, np.float32)
+    p0 = random_init(jax.random.key(3), grid.npix, grid.nb, 4)
+    st1, loss1 = make_step_fn(cfg)(TrainState(p0, adam.init(p0)), batch)
+
+    mesh = make_mesh_2d(*shape)
+    p0b = shard_params_2d(
+        random_init(jax.random.key(3), grid.npix, grid.nb, 4), mesh
     )
-    for name in ("F", "Psi", "omega", "tau0", "c0", "beta"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(st3.params, name)),
-            np.asarray(getattr(st.params, name)), err_msg=name,
-        )
-    assert int(st3.opt_state.epoch) == 3
-
-
-def test_fit_pallas_mesh_chunked_matches_per_epoch(problem, tmp_path):
-    """fit_pallas(mesh=..., epochs_per_launch=3) on a ONE-device mesh must
-    reproduce the epochs_per_launch=1 mesh run epoch-for-epoch (pmean is
-    identity there, and the chunk fn re-derives the per-epoch subkeys from
-    the base key), with chunks still aligning to the smoothing/saving
-    cadence."""
-    import os
-
-    from qfa_tpu.train import fit_pallas
-
-    grid, data = problem
-    mesh = make_mesh(1)
-    cfg = TrainConfig(n_epochs=5, batch_size=32, learning_rate=1e-2,
-                      weight_decay=0.01, smooth_interval=2, save_interval=2)
-    p0 = random_init(jax.random.key(5), grid.npix, grid.nb, 4)
-    kw = dict(key=jax.random.key(7), tile_batch=8, mesh=mesh,
-              interpret=True)
-
-    out1 = str(tmp_path / "per_epoch")
-    params1, hist1 = fit_pallas(p0, data, mu=jnp.ones((grid.npix,)),
-                                config=cfg, output_dir=out1, **kw)
-    out3 = str(tmp_path / "chunked")
-    params3, hist3 = fit_pallas(p0, data, mu=jnp.ones((grid.npix,)),
-                                config=cfg, output_dir=out3,
-                                epochs_per_launch=3, **kw)
-
-    np.testing.assert_array_equal(np.asarray(hist3, np.float32),
-                                  np.asarray(hist1, np.float32))
-    for name in ("F", "Psi", "omega", "tau0", "c0", "beta"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(params3, name)),
-            np.asarray(getattr(params1, name)), err_msg=name,
-        )
-    # the save cadence survived chunk alignment
-    for ck in ("02", "04"):
-        assert os.path.exists(
-            f"{out3}/checkpoints/model_parameters_epoch_{ck}.npz"
-        )
-
-
-def test_epoch_dp_chunked_matches_manual_local_sgd(problem):
-    """epochs_per_launch=2 on a 2-device mesh equals the hand-built local
-    SGD: each shard runs the 2-epoch fused kernel independently (perms
-    from the same device-folded subkeys), then params/moments average and
-    per-batch loss books sum across shards."""
-    from qfa_tpu.ops.epoch_kernel import fused_train_epoch
-    from qfa_tpu.parallel import make_epoch_dp_fn, shard_dataset
-
-    grid, data = problem
-    ndev, epl, b_global = 2, 2, 32
-    mesh = make_mesh(ndev)
-    cfg = TrainConfig(batch_size=b_global, learning_rate=1e-2,
-                      weight_decay=0.01)
-    st0 = fresh_state(grid)
-    base = jax.random.key(13)
-    fn = make_epoch_dp_fn(
-        cfg, mesh, tile_batch=8, epochs_per_launch=epl, interpret=True
+    st2, loss2 = make_tp_step_fn(cfg, mesh)(
+        TrainState(p0b, adam.init(p0b)), shard_batch_2d(batch, mesh)
     )
-    st, losses = fn(st0, shard_dataset(data, mesh), base)
-
-    n = data.delta.shape[0]
-    n_local, b_local, tb = n // ndev, b_global // ndev, 8
-    subs = [jax.random.fold_in(base, e) for e in range(epl)]
-    outs = []
-    for d in range(ndev):
-        sl = slice(d * n_local, (d + 1) * n_local)
-        perms = jnp.stack([
-            jax.random.permutation(
-                jax.random.fold_in(subs[e], jnp.uint32(d)), n_local // tb
-            )
-            for e in range(epl)
-        ])
-        outs.append(fused_train_epoch(
-            st0.params, st0.opt_state.m, st0.opt_state.v,
-            data.delta[sl], data.error[sl], data.zabs[sl], perms,
-            data.mask[sl], epoch=st0.opt_state.epoch,
-            n_batches=n_local // b_local, n_epochs=epl, tile_batch=tb,
-            learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
-            interpret=True,
-        ))
-    for name in ("F", "Psi", "omega", "tau0", "c0", "beta"):
-        avg = sum(
-            np.asarray(getattr(o.params, name), np.float32) / ndev
-            for o in outs
-        )
+    assert float(loss2) == pytest.approx(float(loss1), rel=1e-5)
+    for a, b in zip(jax.tree.leaves(st1.params), jax.tree.leaves(st2.params)):
         np.testing.assert_allclose(
-            np.asarray(getattr(st.params, name)), avg, rtol=1e-6,
-            atol=1e-7, err_msg=name,
+            np.asarray(a), np.asarray(b), rtol=5e-4, atol=1e-5
         )
-    loss_sums = sum(np.asarray(o.loss_sums) for o in outs)
-    n_real_b = sum(np.asarray(o.n_real) for o in outs)
-    expect = (loss_sums / np.maximum(n_real_b, 1.0)).sum(axis=1) / (
-        n // b_global
-    )
-    np.testing.assert_allclose(np.asarray(losses), expect, rtol=1e-6)
 
 
-# ---- multi-chip fused inference ------------------------------------------
+# ---- multi-device prediction ----------------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -546,18 +266,17 @@ def infer_problem():
 
 
 def test_dp_fused_predict_matches_single_device(infer_problem):
-    """Full-mode DP inference over 8 devices == the single-device kernel
-    (float32 rounding; tiles never span shard boundaries)."""
-    from qfa_tpu.ops.infer_kernel import fused_predict
-    from qfa_tpu.parallel import fused_predict_dp
+    """Full-mode sharded prediction over 8 devices == the single-device
+    predictor (float32 rounding), outputs left sharded."""
+    from qfa_tpu.models import predict
+    from qfa_tpu.parallel import make_dp_predict_fn
 
     grid, params, mu, syn = infer_problem
     flux, err = syn.flux * syn.mask, syn.error * syn.mask
-    mesh = make_mesh(NDEV)
-    ref = fused_predict(params, mu, flux, err, syn.zabs, syn.mask,
-                        tile_batch=8, interpret=True)
-    dp = fused_predict_dp(params, mu, flux, err, syn.zabs, syn.mask,
-                          mesh=mesh, tile_batch=8, interpret=True)
+    ref = predict(params, mu, flux, err, syn.zabs, syn.mask)
+    dp = make_dp_predict_fn(make_mesh(NDEV))(
+        params, mu, flux, err, syn.zabs, syn.mask
+    )
     for f in ref._fields:
         np.testing.assert_allclose(
             np.asarray(getattr(ref, f)), np.asarray(getattr(dp, f)),
@@ -567,38 +286,28 @@ def test_dp_fused_predict_matches_single_device(infer_problem):
     assert {s.data.shape[0] for s in dp.ll.addressable_shards} == {
         64 // NDEV
     }
-    # out_dtype plumbs through the SPMD wrapper: bf16 planes, f32 stats
-    dp16 = fused_predict_dp(params, mu, flux, err, syn.zabs, syn.mask,
-                            mesh=mesh, tile_batch=8, interpret=True,
-                            out_dtype=jnp.bfloat16)
-    assert dp16.continuum.dtype == jnp.bfloat16
-    np.testing.assert_array_equal(np.asarray(dp16.ll), np.asarray(dp.ll))
-    np.testing.assert_allclose(
-        np.asarray(dp16.continuum, np.float32), np.asarray(dp.continuum),
-        rtol=1e-2, atol=1e-2,
-    )
 
 
 def test_dp_fused_predict_stats_only_production_layout(infer_problem):
-    """The survey OOD layout (stats_only + derived mask + zq column) runs
-    sharded and matches, with the continuum planes elided."""
-    from qfa_tpu.ops import loglam_row, zq_column
-    from qfa_tpu.ops.infer_kernel import fused_predict
-    from qfa_tpu.parallel import fused_predict_dp, shard_leaves
+    """The survey OOD layout (stats only, mask from error > 0, log1p(zqso)
+    column) runs sharded and matches, with the continuum planes elided."""
+    from qfa_tpu.data.grid import loglam_row, zq_column
+    from qfa_tpu.models import predict
+    from qfa_tpu.parallel import make_dp_predict_fn, shard_leaves
 
     grid, params, mu, syn = infer_problem
     flux, err = syn.flux * syn.mask, syn.error * syn.mask
     zq = zq_column(syn.zqso)
     llrow = loglam_row(grid.wav)
     mesh = make_mesh(NDEV)
-    ref = fused_predict(params, mu, flux, err, zq, None, tile_batch=8,
-                        interpret=True, stats_only=True, loglam=llrow,
-                        derive_zabs=True)
+    ref = predict(params, mu, flux, err, zq, None, stats_only=True,
+                  loglam=llrow)
     # pre-sharded device inputs, as a resident survey sweep would hold them
     sflux, serr, szq = shard_leaves((flux, err, zq), mesh)
-    dp = fused_predict_dp(params, mu, sflux, serr, szq, None, mesh=mesh,
-                          tile_batch=8, interpret=True, stats_only=True,
-                          loglam=llrow, derive_zabs=True)
+    dp = make_dp_predict_fn(mesh, has_mask=False, compact=True,
+                            stats_only=True)(
+        params, mu, sflux, serr, szq, llrow
+    )
     assert dp.continuum is None and dp.continuum_std is None
     np.testing.assert_allclose(np.asarray(ref.ll), np.asarray(dp.ll),
                                rtol=2e-6)
@@ -606,33 +315,18 @@ def test_dp_fused_predict_stats_only_production_layout(infer_problem):
                                rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(np.asarray(ref.hcov), np.asarray(dp.hcov),
                                rtol=2e-5, atol=1e-7)
-    np.testing.assert_array_equal(np.asarray(ref.n_obs), np.asarray(dp.n_obs))
-
-
-def test_dp_fused_predict_validates_divisibility(infer_problem):
-    from qfa_tpu.parallel import fused_predict_dp
-
-    grid, params, mu, syn = infer_problem
-    mesh = make_mesh(NDEV)
-    flux, err = syn.flux * syn.mask, syn.error * syn.mask
-    with pytest.raises(ValueError, match="not divisible over"):
-        fused_predict_dp(params, mu, flux[:60], err[:60], syn.zabs[:60],
-                         mesh=mesh, tile_batch=8, interpret=True)
-    with pytest.raises(ValueError, match="tile_batch"):
-        fused_predict_dp(params, mu, flux, err, syn.zabs,
-                         mesh=mesh, tile_batch=3, interpret=True)
 
 
 def test_predict_dataset_fused_on_mesh_matches_single_device(infer_problem):
-    """predict_dataset_fused(mesh=...) shards each chunk over the mesh
-    (padded tail included) and equals the single-device fused driver."""
+    """predict_dataset(mesh=...) shards each batch over the mesh (padded
+    tail included) and equals the single-device driver."""
     from qfa_tpu.data.loader import SpectraDataset
-    from qfa_tpu.infer import predict_dataset_fused
+    from qfa_tpu.infer import predict_dataset
 
     grid, params, mu, syn = infer_problem
     m = np.asarray(syn.mask) > 0
-    # 40 spectra: with chunk=64 over 8 devices x tile 4 the single chunk
-    # pads 40 -> 64 (3 inert rows on the last device's shard)
+    # 40 spectra in batches of 12 -> rounded up to 16 over 8 devices, so
+    # the last batch pads 8 -> 16 inert rows
     ds = SpectraDataset(
         flux=np.where(m, np.asarray(syn.flux), 0.0)[:40].astype(np.float32),
         error=np.where(m, np.asarray(syn.error), 0.0)[:40].astype(np.float32),
@@ -640,11 +334,11 @@ def test_predict_dataset_fused_on_mesh_matches_single_device(infer_problem):
         zqso=np.asarray(syn.zqso, np.float32)[:40],
         paths=(),
     )
-    a = predict_dataset_fused(params, mu, ds, grid, chunk=64, tile_batch=4,
-                              interpret=True)
-    b = predict_dataset_fused(params, mu, ds, grid, chunk=64, tile_batch=4,
-                              interpret=True, mesh=make_mesh(NDEV))
+    a = predict_dataset(params, mu, ds, grid, batch_size=12)
+    b = predict_dataset(params, mu, ds, grid, batch_size=12,
+                        mesh=make_mesh(NDEV))
     for f in ("ll", "hmean", "hcov", "continuum", "continuum_std"):
+        assert getattr(b, f).shape[0] == 40
         np.testing.assert_allclose(
             np.asarray(getattr(b, f)), np.asarray(getattr(a, f)),
             rtol=2e-5, atol=2e-6, err_msg=f,
@@ -653,17 +347,13 @@ def test_predict_dataset_fused_on_mesh_matches_single_device(infer_problem):
 
 def test_dp_fused_predict_compiles_with_zero_collectives(infer_problem):
     """The compiled SPMD prediction program contains NO collective ops —
-    inference has no cross-spectrum coupling, so multi-chip throughput is
-    exactly N x the single-chip rate (modulo shard_map plumbing)."""
-    from qfa_tpu.ops import loglam_row, zq_column
+    prediction has no cross-spectrum coupling."""
+    from qfa_tpu.data.grid import loglam_row, zq_column
     from qfa_tpu.parallel.infer_dp import make_dp_predict_fn
 
     grid, params, mu, syn = infer_problem
     flux, err = syn.flux * syn.mask, syn.error * syn.mask
-    fn = make_dp_predict_fn(
-        make_mesh(NDEV), has_mask=False, tile_batch=8, stats_only=False,
-        derive_zabs=True, interpret=True,
-    )
+    fn = make_dp_predict_fn(make_mesh(NDEV), has_mask=False, compact=True)
     txt = fn.lower(
         params, mu, flux, err, zq_column(syn.zqso), loglam_row(grid.wav)
     ).compile().as_text()
@@ -672,90 +362,10 @@ def test_dp_fused_predict_compiles_with_zero_collectives(infer_problem):
         assert word not in txt, word
 
 
-def test_dp_pallas_default_tile_divides_any_batch(problem):
-    """engine="pallas" with tile_batch=None resolves an npix-aware tile
-    that divides the per-device batch even when that batch is not a
-    256-multiple (r3 review: min(local_bs, 256) crashed at trace time)."""
-    grid, _ = problem
-    true = random_init(jax.random.key(3), grid.npix, grid.nb, 4)
-    mu = jnp.ones((grid.npix,), jnp.float32)
-    syn = generate(jax.random.key(4), true, mu, grid, 320, mask_frac=0.1)
-    b = syn.to_batch(mu)
-    data = ResidualDataset(
-        delta=b.delta, error=b.error, zabs=b.zabs, mask=b.mask
-    )
-    mesh = make_mesh(1)
-    cfg = TrainConfig(batch_size=320, learning_rate=1e-2, weight_decay=0.01)
-    idx = shard_epoch_indices(
-        jax.random.key(5), data.size, cfg.batch_size, mesh
-    )
-    st, loss = make_dp_epoch_fn(cfg, mesh, engine="pallas", interpret=True)(
-        fresh_state(grid), shard_dataset(data, mesh), idx
-    )
-    assert np.isfinite(float(loss))
-    # an explicit non-dividing tile still fails loudly, at build time
-    with pytest.raises(ValueError, match="does not divide"):
-        make_dp_epoch_fn(cfg, mesh, engine="pallas", tile_batch=3)
+def test_dp_predict_rejects_2d_mesh():
+    """Prediction shards over a 1-D data mesh only."""
+    from qfa_tpu.parallel import make_dp_predict_fn
+    from qfa_tpu.parallel.tp import make_mesh_2d
 
-
-def test_epoch_dp_non_multiple_shard_raises(problem):
-    """A local shard that is not a whole number of local batches must
-    raise, never silently train at a different batch size (r3 review:
-    128 rows / batch 48 passed the old guard and ran 2 batches of 64)."""
-    from qfa_tpu.parallel import make_epoch_dp_fn
-
-    grid, data = problem  # 128 rows
-    mesh = make_mesh(1)
-    cfg = TrainConfig(batch_size=48)
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    with pytest.raises(ValueError, match="whole number"):
-        fn(fresh_state(grid), shard_dataset(data, mesh), jax.random.key(0))
-
-
-def test_epoch_dp_shard_smaller_than_batch_raises(problem):
-    """b_local > n_local used to ZeroDivisionError mid-trace (r3 review)."""
-    from qfa_tpu.parallel import make_epoch_dp_fn
-
-    grid, data = problem  # 16 rows/device on the 8-device mesh
-    mesh = make_mesh(NDEV)
-    cfg = TrainConfig(batch_size=512)  # b_local=64 > n_local=16
-    fn = make_epoch_dp_fn(cfg, mesh, tile_batch=8, interpret=True)
-    with pytest.raises(ValueError, match="whole number"):
-        fn(fresh_state(grid), shard_dataset(data, mesh), jax.random.key(0))
-
-
-def test_epoch_dp_train_epoch_chunked_returns_last_epoch_loss(problem):
-    """The convenience helper honors its float contract for
-    epochs_per_launch > 1 (r3 review: float(vector) raised TypeError)."""
-    from qfa_tpu.parallel import epoch_dp_train_epoch, make_epoch_dp_fn
-
-    grid, data = problem
-    mesh = make_mesh(1)
-    cfg = TrainConfig(batch_size=32, learning_rate=1e-2)
-    st, loss = epoch_dp_train_epoch(
-        fresh_state(grid), shard_dataset(data, mesh), jax.random.key(3),
-        cfg, mesh, tile_batch=8, interpret=True, epochs_per_launch=2,
-    )
-    assert isinstance(loss, float) and np.isfinite(loss)
-    _, vec = make_epoch_dp_fn(
-        cfg, mesh, tile_batch=8, interpret=True, epochs_per_launch=2
-    )(fresh_state(grid), shard_dataset(data, mesh), jax.random.key(3))
-    assert loss == pytest.approx(float(np.asarray(vec)[-1]))
-
-
-def test_dp_fused_predict_tiny_shard_fails_loudly_on_hardware(infer_problem):
-    """Auto-tile with a sub-8-row local shard raises a clear ValueError on
-    the hardware path instead of an opaque Mosaic layout error; interpret
-    mode (no sublane constraint) still runs (r3 review finding)."""
-    from qfa_tpu.parallel import fused_predict_dp
-
-    grid, params, mu, syn = infer_problem
-    mesh = make_mesh(NDEV)
-    flux, err = syn.flux * syn.mask, syn.error * syn.mask
-    n = 32  # 4 spectra per device
-    with pytest.raises(ValueError, match="sublane"):
-        fused_predict_dp(params, mu, flux[:n], err[:n], syn.zabs[:n],
-                         mesh=mesh, interpret=False)
-    out = fused_predict_dp(params, mu, flux[:n], err[:n], syn.zabs[:n],
-                           mesh=mesh, interpret=True)
-    assert np.asarray(out.ll).shape == (n,)
+    with pytest.raises(ValueError, match="1-D"):
+        make_dp_predict_fn(make_mesh_2d(2, 4))

@@ -2,9 +2,7 @@
 
 The reference has no serving path (batch loop only,
 ``/root/reference/main.py:86-100``); qfa_tpu.serve adds one. These tests
-pin it to the core batched ``predict`` on the XLA engine (the CPU test
-platform) — the fused TPU engine reuses the same production kernel the
-fused-inference tests already pin.
+pin it to the core batched ``predict``.
 """
 
 import json
@@ -64,7 +62,7 @@ def test_predictor_matches_core_predict_with_chunking(ckpt, request_data):
     """13 spectra through max_batch=8 (pad + 2 chunks) == one direct call."""
     path = ckpt[0]
     flux, error, zqso = request_data
-    pred = QFAPredictor(path, max_batch=8, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=8, **GRID)
     out = pred.predict(flux, error, zqso)
     ref = expected(ckpt, flux, error, zqso)
     np.testing.assert_allclose(out["ll"], np.asarray(ref.ll), rtol=2e-5)
@@ -86,7 +84,7 @@ def test_predictor_sentinel_equals_explicit_mask(ckpt, request_data):
     mask[:, 3:7] = False
     f_s = flux.copy()
     f_s[:, 3:7] = -999.0  # reference missing-pixel sentinel
-    pred = QFAPredictor(path, max_batch=16, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=16, **GRID)
     out_sentinel = pred.predict(f_s, error, zqso)
     out_masked = pred.predict(flux, error, zqso, mask=mask)
     np.testing.assert_allclose(out_sentinel["ll"], out_masked["ll"], rtol=1e-6)
@@ -95,7 +93,7 @@ def test_predictor_sentinel_equals_explicit_mask(ckpt, request_data):
 
 def test_predictor_validates_shapes(ckpt):
     path, grid, *_ = ckpt
-    pred = QFAPredictor(path, max_batch=4, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=4, **GRID)
     with pytest.raises(ValueError, match="pixels"):
         pred.predict(
             np.ones((2, grid.npix + 1)), np.ones((2, grid.npix + 1)),
@@ -111,13 +109,13 @@ def test_predictor_validates_shapes(ckpt):
 def test_predictor_rejects_wrong_grid(ckpt):
     path = ckpt[0]
     with pytest.raises(ValueError, match="grid"):
-        QFAPredictor(path, engine="xla")  # default SDSS grid != tiny ckpt
+        QFAPredictor(path)  # default SDSS grid != tiny ckpt
 
 
 def test_predictor_empty_batch(ckpt):
     """Zero spectra is a valid request: empty, correctly-shaped outputs."""
     path, grid, *_ = ckpt
-    pred = QFAPredictor(path, max_batch=4, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=4, **GRID)
     out = pred.predict(
         np.zeros((0, grid.npix), np.float32),
         np.zeros((0, grid.npix), np.float32),
@@ -137,7 +135,7 @@ def test_http_nonfinite_outputs_serialize_as_null(ckpt, request_data):
     flux, error, zqso = request_data
     f = flux[:2].copy()
     f[0, 0] = np.nan  # poisons spectrum 0's likelihood
-    pred = QFAPredictor(path, max_batch=4, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=4, **GRID)
     srv = make_http_server(pred, "127.0.0.1", 0)
     port = srv.server_address[1]
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -164,7 +162,7 @@ def test_http_nonfinite_outputs_serialize_as_null(ckpt, request_data):
 def test_http_endpoint_round_trip(ckpt, request_data):
     path = ckpt[0]
     flux, error, zqso = request_data
-    pred = QFAPredictor(path, max_batch=16, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=16, **GRID)
     srv = make_http_server(pred, "127.0.0.1", 0)  # ephemeral port
     port = srv.server_address[1]
     t = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -213,7 +211,7 @@ def test_http_concurrent_requests(ckpt, request_data):
     no dropped/errored requests under concurrency) — VERDICT r3 polish."""
     path = ckpt[0]
     flux, error, zqso = request_data
-    pred = QFAPredictor(path, max_batch=4, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=4, **GRID)
     pred.warmup()
     srv = make_http_server(pred, "127.0.0.1", 0)
     port = srv.server_address[1]
@@ -265,28 +263,11 @@ def test_http_concurrent_requests(ckpt, request_data):
         srv.shutdown()
 
 
-def test_fused_interpret_engine_matches_xla(ckpt, request_data):
-    """The TPU serving path (fused kernel, interpret mode) == XLA engine."""
-    path = ckpt[0]
-    flux, error, zqso = request_data
-    xla = QFAPredictor(path, max_batch=8, engine="xla", **GRID)
-    fused = QFAPredictor(
-        path, max_batch=8, engine="fused", interpret=True, **GRID
-    )
-    a = xla.predict(flux[:5], error[:5], zqso[:5])
-    b = fused.predict(flux[:5], error[:5], zqso[:5])
-    np.testing.assert_allclose(b["ll"], a["ll"], rtol=2e-4)
-    np.testing.assert_allclose(
-        b["continuum"], a["continuum"], rtol=1e-3, atol=1e-4
-    )
-    np.testing.assert_allclose(b["hmean"], a["hmean"], rtol=1e-3, atol=1e-5)
-
-
 def test_predictor_empty_list_request(ckpt):
     """A JSON `[]` request (shape (0,) after asarray) reaches the empty
     result path instead of tripping the npix check (r3 review finding)."""
     path, grid, *_ = ckpt
-    pred = QFAPredictor(path, max_batch=4, engine="xla", **GRID)
+    pred = QFAPredictor(path, max_batch=4, **GRID)
     out = pred.predict([], [], [])
     assert out["ll"].shape == (0,)
     assert out["hmean"].shape == (0, NH)
